@@ -24,3 +24,8 @@ def hdfs_lines():
     from repro.data.loggen import generate_lines
 
     return list(generate_lines("HDFS", 2500, seed=11))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels of repro_torch); skips without one")
