@@ -5,12 +5,15 @@ When a log joins a cluster, the cluster template is updated to
 sequences disagree (gaps collapse into a single ``*``).
 
 ``lcs_merge`` is the host (numpy) implementation used inside streaming
-clustering (runs only on the ~1% sample, as in the paper).
+clustering (runs only on the ~1% sample, as in the paper). ``lcs_length``
+is the true LCS length in torch, the oracle the tests hold the φ
+surrogate (``common_token_count``, the ``simcount`` kernel) against.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .tokenizer import PAD_ID, STAR_ID
 
@@ -84,3 +87,27 @@ def common_token_count(m_tokens: np.ndarray, templates: np.ndarray, t_lens: np.n
     eq &= (templates != PAD_ID)[:, :, None] & (templates != STAR_ID)[:, :, None]
     return eq.any(axis=1).sum(axis=1).astype(np.int32)
 
+
+
+def lcs_length(a, b) -> torch.Tensor:
+    """True LCS length between two PAD-padded id vectors -> int32 scalar.
+
+    PAD and STAR entries of either vector match nothing. Row by row over
+    ``a``: ``dp[i][j] = max(dp[i-1][j], dp[i][j-1], dp[i-1][j-1] + match)``,
+    which is a running maximum along ``j`` of ``max(dp[i-1][j],
+    dp[i-1][j-1] + match)``; a PAD or STAR row copies the previous one.
+    """
+    a = torch.as_tensor(a).to(torch.int32).reshape(-1)
+    b = torch.as_tensor(b).to(torch.int32).reshape(-1)
+    m = b.shape[0]
+    if m == 0:
+        return torch.zeros((), dtype=torch.int32)
+    b_ok = (b != PAD_ID) & (b != STAR_ID)
+    row = torch.zeros(m, dtype=torch.int32)
+    for ai in a.tolist():
+        if ai in (PAD_ID, STAR_ID):
+            continue
+        diag = torch.cat([torch.zeros(1, dtype=torch.int32), row[:-1]])
+        cand = torch.where((b == ai) & b_ok, diag + 1, 0)
+        row = torch.cummax(torch.maximum(row, cand), dim=0).values
+    return row[-1]

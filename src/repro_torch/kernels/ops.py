@@ -1,4 +1,5 @@
-"""numpy in/out wrappers over the port's kernels, as the pipeline calls them.
+"""numpy in/out wrappers over the port's kernels, as the pipeline and the
+kernel benchmark call them.
 
 Each function takes the ``device`` the work runs on. On ``"cuda"`` the
 inputs go to the card and the hand-written CUDA kernel runs; a failure
@@ -16,7 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.textops import first_occurrence_unique, runs_of
 from . import colcodec as _cc
+from . import match_extract as _me
+from . import simcount as _sc
+from . import tokenize as _tk
 from . import wildcard_match as _wm
 from .wildcard_match import STAR_ID
 
@@ -40,14 +45,18 @@ def check_device(device) -> torch.device:
 input_hook = None
 
 
+_KERNELS = {"wildcard_match": _wm, "colcodec_transform": _cc, "tokenize_hash": _tk,
+            "simcount": _sc, "match_extract": _me}
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last ``reset_launch_counts``."""
-    return {"wildcard_match": _wm.launches(), "colcodec_transform": _cc.launches()}
+    return {name: mod.launches() for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _wm.reset_launches()
-    _cc.reset_launches()
+    for mod in _KERNELS.values():
+        mod.reset_launches()
 
 
 def _to(dev: torch.device, arr: np.ndarray) -> torch.Tensor:
@@ -150,6 +159,43 @@ def match_first_bucketed(ids: np.ndarray, lens: np.ndarray, templates: list[np.n
     return np.where(best < n_tpl, best, -1).astype(np.int32)
 
 
+def simcount(logs, templates, *, device="cuda") -> np.ndarray:
+    """(N, T) x (K, Tt) int32 -> (N, K) int32 common-token counts φ."""
+    dev = check_device(device)
+    args = (_to(dev, logs), _to(dev, templates))
+    if input_hook is not None:
+        input_hook("simcount", args)
+    return _sc.simcount(*args).cpu().numpy()
+
+
+def match_extract(ids: np.ndarray, lens: np.ndarray, templates: list[np.ndarray],
+                  *, device="cuda") -> tuple[np.ndarray, np.ndarray]:
+    """Fused kernel path: one launch -> (assign (N,) int32 lowest-id
+    matching template or -1, spans (N, n_slots, 2) int32 ``[start, end)``
+    per star of the assigned template, 0 in every other slot and on every
+    row with ``assign == -1``). ``n_slots`` is the most stars of any
+    template, at least 1. Lines longer than the grid (``len > T``) are
+    masked here, where the true width is known: they never match.
+    """
+    dev = check_device(device)
+    ids = np.asarray(ids, np.int32)
+    lens_np = np.asarray(lens, np.int32)
+    n, t = ids.shape
+    tmpl, tlens = pack_templates(templates)
+    n_slots = max([1] + [int((np.asarray(tp) == STAR_ID).sum()) for tp in templates])
+    if tmpl.shape[0] == 0 or n == 0:
+        return np.full(n, -1, np.int32), np.zeros((n, n_slots, 2), np.int32)
+    args = (_to(dev, ids), _to(dev, lens_np), _to(dev, tmpl), _to(dev, tlens))
+    if input_hook is not None:
+        input_hook("match_extract", args)
+    assign, spans = _me.match_extract(*args, n_slots)
+    assign, spans = assign.cpu().numpy(), spans.cpu().numpy()
+    over = lens_np > t  # truncated lines never match (host rule)
+    assign[over] = -1
+    spans[over] = 0
+    return assign, spans
+
+
 # ------------------------------------------------------ typed column codecs
 
 def delta_zigzag(vals: np.ndarray, lens: np.ndarray, mode: np.ndarray,
@@ -177,3 +223,104 @@ def delta_zigzag(vals: np.ndarray, lens: np.ndarray, mode: np.ndarray,
     if input_hook is not None:
         input_hook("colcodec_transform", args)
     return _cc.colcodec_transform(*args).cpu().numpy()
+
+
+# --------------------------------------------------------- byte tokenizer
+
+DEFAULT_DELIMITERS = " \t,;:="
+
+
+def pack_lines(lines: list[str]) -> tuple[np.ndarray, np.ndarray, list[bytes]]:
+    """utf-8 encode + pad lines into an (N, B) uint8 block -> (blocks,
+    byte lengths, encoded lines). B is the longest line plus one: every
+    row ends in at least one pad byte, so token runs never merge across
+    rows when host code scans the flattened mask."""
+    enc = [line.encode("utf-8", "surrogateescape") for line in lines]
+    n = len(enc)
+    blens = np.fromiter((len(e) for e in enc), np.int32, n)
+    width = int(blens.max(initial=1)) + 1
+    blocks = np.zeros((n, width), np.uint8)
+    for i, e in enumerate(enc):
+        blocks[i, : len(e)] = np.frombuffer(e, np.uint8)
+    return blocks, blens, enc
+
+
+def _tokenize_hash(blocks: np.ndarray, blens: np.ndarray, delimiters: str,
+                   dev: torch.device, pws: tuple) -> tuple[np.ndarray, ...]:
+    """(mask, starts, pref1, pref2) of ``blocks`` as numpy arrays."""
+    args = (torch.from_numpy(blocks).to(dev), _to(dev, blens),
+            torch.from_numpy(pws[0][0]).to(dev), torch.from_numpy(pws[1][0]).to(dev))
+    if input_hook is not None:
+        input_hook("tokenize_hash", args)
+    outs = _tk.tokenize_hash(*args, tuple(ord(c) for c in delimiters))
+    return tuple(o.cpu().numpy() for o in outs)
+
+
+def device_tokenize(lines: list[str], delimiters: str = DEFAULT_DELIMITERS,
+                    *, device="cuda") -> list[tuple[list[str], list[str]]]:
+    """Kernel-backed ``tokenize`` over a batch -> [(tokens, delims), ...].
+
+    Runs the byte tokenizer kernel for the boundary masks, then slices
+    token/delimiter strings on the host. ``reassemble`` of each result is
+    byte-identical to the input line, and tokens agree with
+    ``core.tokenizer.tokenize`` for ASCII delimiter sets.
+    """
+    dev = check_device(device)
+    if not lines:
+        return []
+    blocks, blens, enc = pack_lines(lines)
+    pws = _tk.hash_powers(blocks.shape[1])
+    mask = _tokenize_hash(blocks, blens, delimiters, dev, pws)[0].astype(bool)
+    out = []
+    for i, e in enumerate(enc):
+        ts, te = runs_of(mask[i, : len(e)])
+        toks = [e[s:t2].decode("utf-8", "surrogateescape") for s, t2 in zip(ts, te)]
+        bounds = np.concatenate([[0], np.stack([ts, te], 1).ravel(), [len(e)]]) \
+            if len(ts) else np.array([0, len(e)])
+        dl = [e[bounds[2 * j]:bounds[2 * j + 1]].decode("utf-8", "surrogateescape")
+              for j in range(len(ts) + 1)]
+        out.append((toks, dl))
+    return out
+
+
+def device_encode_batch(contents: list[str], vocab, max_len: int,
+                        delimiters: str = DEFAULT_DELIMITERS,
+                        *, tight: bool = True, device="cuda") -> tuple[np.ndarray, np.ndarray]:
+    """Kernel-backed twin of ``Vocab.encode_batch``: tokenize + hash on
+    the device, intern only unseen 64-bit (2 x uint32) hashes on the host.
+
+    -> (ids (N, W) int32, lens (N,) int32), equal to the host path on a
+    vocab in the same state.
+    """
+    dev = check_device(device)
+    n = len(contents)
+    if n == 0:
+        return np.zeros((0, 1), np.int32), np.zeros(0, np.int32)
+    blocks, blens, enc = pack_lines(contents)
+    pws = _tk.hash_powers(blocks.shape[1])
+    mask, starts, pref1, pref2 = _tokenize_hash(blocks, blens, delimiters, dev, pws)
+    mask = mask.astype(bool)
+
+    rows, scol = np.nonzero(starts)                # token starts, row-major
+    # token ends from the flattened mask (rows never merge: pack_lines
+    # guarantees a trailing pad byte per row)
+    ecol = runs_of(mask.ravel())[1] - rows * mask.shape[1]
+    lens = np.bincount(rows, minlength=n).astype(np.int32)
+    width = max(1, min(max_len, int(lens.max(initial=1)))) if tight else max_len
+    col = np.arange(len(rows)) - np.concatenate([[0], np.cumsum(lens)])[rows]
+    keep = col < width
+    rows, scol, ecol, col = rows[keep], scol[keep], ecol[keep], col[keep]
+
+    def lane(pref, pw_inv):
+        lo = np.where(scol > 0, pref[rows, np.maximum(scol - 1, 0)], np.uint32(0))
+        return (pref[rows, ecol - 1] - lo) * pw_inv[scol]
+    h = lane(pref1, pws[0][1]).astype(np.uint64) << np.uint64(32)
+    h |= lane(pref2, pws[1][1]).astype(np.uint64)
+    tok_of, fo = first_occurrence_unique(h)
+    table = [enc[rows[i]][scol[i]:ecol[i]].decode("utf-8", "surrogateescape")
+             for i in fo.tolist()]
+    vid = np.fromiter((vocab.id(t) for t in table), np.int32, len(table)) \
+        if table else np.zeros(0, np.int32)
+    ids = np.zeros((n, width), np.int32)
+    ids[rows, col] = vid[tok_of]
+    return ids, lens

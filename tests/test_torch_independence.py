@@ -89,6 +89,11 @@ def _entry_points():
         "ColumnCodec": lambda: ColumnCodec("h.x", typed=True, device="cuda").encode(
             [str(v) for v in range(40)]),
         "delta_zigzag": lambda: ops.delta_zigzag(ids, lens, lens, device="cuda"),
+        "simcount": lambda: ops.simcount(ids, ids, device="cuda"),
+        "match_extract": lambda: ops.match_extract(ids, lens, tpl, device="cuda"),
+        "match_extract_empty": lambda: ops.match_extract(ids[:0], lens[:0], tpl, device="cuda"),
+        "device_tokenize": lambda: ops.device_tokenize(["a b"], device="cuda"),
+        "device_encode_batch": lambda: ops.device_encode_batch(["a b"], None, 4, device="cuda"),
     }
 
 

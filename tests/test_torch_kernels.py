@@ -227,7 +227,8 @@ def test_cpu_tensors_launch_nothing():
     logs, lens, tmpl, tlens = _rand_case(rng, 20, 6, 3, 4)
     ops.wildcard_match(logs, lens, tmpl, tlens, device="cpu")
     ops.delta_zigzag(logs, lens, np.ones(20, np.int32), device="cpu")
-    assert ops.launch_counts() == {"wildcard_match": 0, "colcodec_transform": 0}
+    assert ops.launch_counts() == {"wildcard_match": 0, "colcodec_transform": 0,
+                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0}
 
 
 def test_input_hook_sees_each_wrapper_call(monkeypatch):
