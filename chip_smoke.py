@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit; build the five CUDA kernels
+1. print the card's name and power limit; build the six CUDA kernels
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
 2. hold each kernel against its plain torch version on the card, on
    edge-case inputs, with ``torch.equal`` (integer outputs: tolerance 0);
@@ -32,7 +32,20 @@ Phases, each of which raises on failure:
    ``Vocab.encode_batch`` over ``tokenize``; ``assign`` equals the numpy
    ``match_first`` and the spans ``extract_spans``; φ equals
    ``common_token_count``;
-6. time each kernel (device time, from a CUDA graph of launches) and its
+6. the streaming containers and the query path at real size, on the
+   1,000,000 HDFS lines of phase 3: a ``StreamingCompressor`` session on
+   the card (LZJS v3 with screens, 8,192-line chunks) and
+   ``compress_parallel`` over four spawned workers on the card (LZJM of
+   the first 500,000 lines, a chunk per worker), each equal byte for byte
+   to its ``device="cpu"``
+   twin and decompressing to the lines; then on the LZJF of phase 3, the
+   LZJM and the LZJS, ``count_by_template``, ``top_k`` of two header
+   fields and of one parameter column and ``time_histogram`` on the card
+   under ``torch.profiler`` (``distinct_counts`` must have been
+   launched), each equal to its ``device="cpu"`` result and the header
+   fields' to a plain count over the parsed lines; and ``search`` /
+   ``count`` predicates on the LZJS equal to a plain grep;
+7. time each kernel (device time, from a CUDA graph of launches) and its
    plain version on the largest input the main paths gave it, and print
    the ``kernels`` line and the result line.
 
@@ -58,6 +71,12 @@ SEED = 42
 OPS_LINES = 1_000_000  # the ops-layer phase: Spark, loggen seed 3
 OPS_SEED = 3
 SIMCOUNT_ROWS = 65_536
+STREAM_CHUNK_LINES = 8192  # StreamingCompressor's default chunk
+LZJM_WORKERS = 4
+# the LZJM takes the first half of the lines, a chunk per worker: with all
+# 1,000,000 the script ran 711-800 s of its 1200 s on slower hosts
+LZJM_LINES = 500_000
+LZJM_CHUNK_LINES = LZJM_LINES // LZJM_WORKERS
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
 # one operation per lane per clock
@@ -289,12 +308,31 @@ def match_extract_cases(np):
     return cases
 
 
+def distinct_counts_cases(np):
+    """(name, inv, weights, n_bins): row counts around the Pallas kernel's
+    8-row tile, bin counts around its 128-bin bucket and on both sides of
+    the shared-memory limit (12,288 bins are 48 KB; 60,000 do not fit in
+    227 KB), -1 and out-of-range rows, and weights negative and near 2**31
+    so that the int32 sums wrap."""
+    rng = np.random.default_rng(23)
+    near = np.array([2**31 - 1, 2**31 - 2, -2**31, -7, 3], np.int32)
+    cases = []
+    for n in (1, 7, 8, 9, 4097, 1_000_000):
+        for n_bins in (1, 127, 128, 129, 12_288, 12_289, 60_000):
+            inv = rng.integers(-1, n_bins + 3, n).astype(np.int32)
+            if n > 2:
+                inv[::5] = -1
+                inv[1::7] = n_bins + 1
+            cases.append((f"N={n} n_bins={n_bins}", inv, rng.choice(near, n), n_bins))
+    return cases
+
+
 # ------------------------------------------------------------------- phases
 
 NEW_KERNELS = ("tokenize_hash", "simcount", "match_extract")
 KERNEL_NAMES = {"wildcard_match": "wildcard_match_kernel", "colcodec_transform": "colcodec_kernel",
                 "tokenize_hash": "tokenize_hash_kernel", "simcount": "simcount_kernel",
-                "match_extract": "match_extract_kernel"}
+                "match_extract": "match_extract_kernel", "distinct_counts": "distinct_counts_"}
 # why no single PyTorch call stands beside a kernel as library_ms
 LIBRARY_NOTE = {
     "wildcard_match": "none: no PyTorch call runs a wildcard reachability DP",
@@ -303,6 +341,8 @@ LIBRARY_NOTE = {
                      "(torch.cumsum would be one of the six passes)",
     "simcount": "none: no PyTorch call counts the tokens of each line found in each template",
     "match_extract": "none: no PyTorch call runs the wildcard DP with its walk back",
+    "distinct_counts": "torch.zeros(n_bins, int32).index_add_(0, inv, w): the same sums, "
+                       "for an inverse index that stays in [0, n_bins) as this one does",
 }
 
 
@@ -324,7 +364,7 @@ def capture_largest(ops):
     largest: dict[str, tuple] = {}
 
     def keep(name, args):
-        size = sum(a.numel() for a in args)
+        size = sum(a.numel() for a in args if hasattr(a, "numel"))
         if size > sizes.get(name, -1):
             sizes[name], largest[name] = size, args
 
@@ -420,6 +460,198 @@ def ops_phase(np, torch, profile, activity):
     return counts, {k: args + extra.get(k, ()) for k, args in largest.items()}, device_ms
 
 
+def header_rows(lines, fmt_str):
+    """Each line's header as {field: value}, None where it does not parse
+    with the format (plain Python, independent of the codec)."""
+    from repro_torch.core.tokenizer import LogFormat
+
+    fmt = LogFormat(fmt_str)
+    rows = []
+    for line in lines:
+        vals = fmt._parse_regex_line(line)
+        rows.append(dict(zip(fmt.fields, vals)) if vals is not None else None)
+    return rows
+
+
+def header_truth(rows):
+    """{aggregation name: its result} for the header-field aggregations,
+    counted over parsed header rows."""
+    import collections
+
+    out = {}
+    for f in ("Level", "Pid"):
+        c = collections.Counter(r[f] for r in rows if r is not None)
+        out[f"top_k {f}"] = sorted(c.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+    hist = collections.Counter()
+    for r in rows:
+        m = re.search(r"[0-9]+", r["Time"]) if r is not None else None
+        if m is not None:
+            hist[int(m.group()) // 60] += 1
+    out["time_histogram Time/60"] = dict(sorted(hist.items()))
+    return out
+
+
+def aggregations(query, blob, device):
+    """The query path's aggregations on one archive -> {name: result},
+    {name: seconds}, {name: QueryStats}."""
+    res, secs, stats = {}, {}, {}
+
+    def run(name, fn, **kw):
+        st = query.QueryStats()
+        t0 = time.perf_counter()
+        res[name] = fn(blob, stats=st, device=device, **kw)
+        secs[name], stats[name] = time.perf_counter() - t0, st
+
+    run("count_by_template", query.count_by_template)
+    run("top_k Level", query.top_k, field="Level")
+    run("top_k Pid", query.top_k, field="Pid")
+    cbt = res["count_by_template"]
+    event = min(cbt, key=lambda g: (-cbt[g], g))
+    run(f"top_k event={event} star=0", query.top_k, event=event, star=0)
+    run("time_histogram Time/60", query.time_histogram, field="Time", bucket=60)
+    return res, secs, stats
+
+
+def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf):
+    """Phase 6: LZJS and LZJM on the card at real size, each against its
+    device="cpu" twin, then the aggregations and searches on the three
+    archives -> (launch counts of the aggregations, the largest input of
+    each kernel they launched, each kernel's device ms under the profiler,
+    {aggregation: its distinct_counts input on the LZJF})."""
+    import io
+
+    from repro_torch.core import query
+    from repro_torch.core.codec import LogzipConfig
+    from repro_torch.core.parallel import compress_parallel, decompress_parallel
+    from repro_torch.core.stream import LZJSReader, StreamingCompressor, decompress_lzjs
+    from repro_torch.kernels import ops
+
+    def session(device):
+        buf, stages = io.BytesIO(), {}
+        with StreamingCompressor(buf, LogzipConfig(format=fmt, device=device),
+                                 chunk_lines=STREAM_CHUNK_LINES, stage_times=stages) as sc:
+            sc.feed(lines)
+        return buf.getvalue(), stages
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lzjs, stages = session("cuda")
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rd = LZJSReader(io.BytesIO(lzjs))
+    n_chunks, screened = len(rd), rd.footer.get("screens") is not None
+    rd.close()
+    log(f"[stream] LZJS v{lzjs[4]} (screens {screened}) on the card: {n_chunks} chunks, compress "
+        f"{comp_s:.2f} s: {len(lines) / comp_s:.0f} lines/s, {raw_bytes / 1e6 / comp_s:.2f} MB/s, "
+        f"ratio {raw_bytes / len(lzjs):.3f} ({len(lzjs)} bytes)")
+    log(f"[stream] stage seconds: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    log(f"[stream] launches: {json.dumps(counts)}")
+    if not (counts["wildcard_match"] >= n_chunks and counts["colcodec_transform"] > 0):
+        raise AssertionError(f"the session skipped a kernel in some chunk: {counts}, "
+                             f"{n_chunks} chunks")
+    t0 = time.perf_counter()
+    if decompress_lzjs(lzjs) != lines:
+        raise AssertionError("decompress_lzjs(LZJS) != lines")
+    dec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if session("cpu")[0] != lzjs:
+        raise AssertionError("the card's LZJS differs from the device='cpu' session's")
+    log(f"[stream] decompress {dec_s:.2f} s; archive byte-identical to the device='cpu' "
+        f"session's ({time.perf_counter() - t0:.2f} s)")
+
+    m_lines = lines[:LZJM_LINES]
+    m_bytes = sum(len(line.encode("utf-8", "surrogateescape")) + 1 for line in m_lines)
+    log(f"[lzjm] cut to the first {len(m_lines)} lines: with all {len(lines)} the script ran "
+        f"711-800 s of its 1200 s on slower hosts")
+    t0 = time.perf_counter()
+    lzjm = compress_parallel(m_lines, LogzipConfig(format=fmt, device="cuda"),
+                             n_workers=LZJM_WORKERS, chunk_lines=LZJM_CHUNK_LINES)
+    comp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if decompress_parallel(lzjm, n_workers=LZJM_WORKERS) != m_lines:
+        raise AssertionError("decompress_parallel(LZJM) != lines")
+    dec_s = time.perf_counter() - t0
+    log(f"[lzjm] {LZJM_WORKERS} spawned workers on the card, {LZJM_CHUNK_LINES}-line chunks: "
+        f"compress {comp_s:.2f} s: {len(m_lines) / comp_s:.0f} lines/s, ratio "
+        f"{m_bytes / len(lzjm):.3f} ({len(lzjm)} bytes); decompress {dec_s:.2f} s")
+    t0 = time.perf_counter()
+    if compress_parallel(m_lines, LogzipConfig(format=fmt, device="cpu"), n_workers=1,
+                         chunk_lines=LZJM_CHUNK_LINES) != lzjm:
+        raise AssertionError("the card's LZJM differs from compress_parallel(n_workers=1) "
+                             "on device='cpu'")
+    log(f"[lzjm] archive byte-identical to n_workers=1 on device='cpu' "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    archives = {"lzjf": lzjf, "lzjm": lzjm, "lzjs": lzjs}
+    results = {}
+    ops.reset_launch_counts()
+    with capture_largest(ops) as largest, profile(activities=[activity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for kind, blob in archives.items():
+            results[kind] = aggregations(query, blob, "cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    device_ms, _ = kernel_profile(prof)
+    busy_ms = sum(us for _, us in device_us(prof).values()) / 1e3
+    log(f"[query] launches of the aggregations: {json.dumps(counts)}; distinct_counts device "
+        f"ms under the profiler {device_ms['distinct_counts']:.4f}; device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.6f})")
+    if counts["distinct_counts"] == 0:
+        raise AssertionError("the aggregations never launched distinct_counts")
+    # each aggregation's input on the LZJF (one chunk: one call each), for
+    # timing the kernel at more than its largest input
+    lzjf_args = []
+    ops.input_hook = lambda name, args: lzjf_args.append(args)
+    try:
+        lzjf_inputs = dict(zip(aggregations(query, lzjf, "cuda")[0], lzjf_args))
+    finally:
+        ops.input_hook = None
+    t0 = time.perf_counter()
+    rows = header_rows(lines, fmt)
+    truth = {"lzjf": header_truth(rows), "lzjm": header_truth(rows[:LZJM_LINES])}
+    truth["lzjs"] = truth["lzjf"]
+    log(f"[query] plain count of the header fields over the lines "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for kind, blob in archives.items():
+        got, secs, stats = results[kind]
+        want, cpu_secs, _ = aggregations(query, blob, "cpu")
+        if got != want:
+            raise AssertionError(f"{kind}: an aggregation on the card differs from device='cpu'")
+        for name, value in truth[kind].items():
+            if got[name] != value:
+                raise AssertionError(f"{kind}: {name} differs from the count over the lines")
+        for name in got:
+            st = stats[name]
+            log(f"[query] {kind} {name}: {secs[name]:.3f} s on the card (profiled), "
+                f"{cpu_secs[name]:.3f} s on cpu; chunks opened {st.chunks_opened} of "
+                f"{st.chunks_total}, counted from manifests {st.chunks_counted_from_manifest}; "
+                f"equal to device='cpu'")
+    log("[query] header-field aggregations equal the plain count over the lines")
+
+    t0 = time.perf_counter()
+    needle = next(tok for tok in lines[len(lines) // 2].split() if tok.startswith("blk_"))
+    for name, pred, test in (
+            (f"Substring({needle!r})", query.Substring(needle), lambda i, l: needle in l),
+            ("FieldEq(Level=WARN)", query.FieldEq("Level", "WARN"),
+             lambda i, l: rows[i] is not None and rows[i]["Level"] == "WARN"),
+            ("And(LineRange(400000, 400100), Substring('blk_'))",
+             query.And(query.LineRange(400_000, 400_100), query.Substring("blk_")),
+             lambda i, l: 400_000 <= i < 400_100 and "blk_" in l)):
+        want = [(i, l) for i, l in enumerate(lines) if test(i, l)]
+        st = query.QueryStats()
+        t1 = time.perf_counter()
+        hits = list(query.search(lzjs, pred, stats=st))
+        search_s = time.perf_counter() - t1
+        if hits != want or query.count(lzjs, pred) != len(want):
+            raise AssertionError(f"search/count {name} differ from a plain grep")
+        log(f"[search] lzjs {name}: {len(hits)} hits in {search_s:.2f} s, equal to a plain "
+            f"grep; chunks opened {st.chunks_opened} of {st.chunks_total}, skipped by screen "
+            f"{json.dumps(st.chunks_skipped_by)}, rows materialized {st.rows_materialized}")
+    log(f"[search] ({time.perf_counter() - t0:.1f} s)")
+    return counts, largest, device_ms, lzjf_inputs
+
 
 def main() -> int:
     import numpy as np
@@ -442,6 +674,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import colcodec as cc
     from repro_torch.kernels import match_extract as me
+    from repro_torch.kernels import scan as sn
     from repro_torch.kernels import simcount as sc
     from repro_torch.kernels import tokenize as tk
     from repro_torch.kernels import wildcard_match as wm
@@ -471,7 +704,7 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     mism = {"wildcard_match": 0, "colcodec_transform": 0, "tokenize_hash": 0, "simcount": 0,
-            "match_extract": 0}
+            "match_extract": 0, "distinct_counts": 0}
     for name, *arrs in wildcard_cases(np):
         args = [on(a) for a in arrs]
         got = wm.wildcard_match(*args)
@@ -517,6 +750,15 @@ def main() -> int:
                                              and torch.equal(got[1], want[1])))
         log(f"[check] match_extract {name} n_slots={n_slots}: {bad} mismatches, "
             f"{int((want[0] >= 0).sum())} lines matched")
+    for name, inv, w, n_bins in distinct_counts_cases(np):
+        args = (on(inv), on(w), n_bins)
+        got, want = sn.distinct_counts(*args), sn.distinct_counts_plain(*args)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        mism["distinct_counts"] += bad + (not torch.equal(got, want))
+        if len(inv) < 10_000 or n_bins in (129, 60_000):
+            log(f"[check] distinct_counts {name}: {bad} mismatches, "
+                f"{int((want != 0).sum())} non-zero bins")
     log(f"[check] mismatches per kernel: {json.dumps(mism)}")
     if any(mism.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {mism}")
@@ -597,7 +839,16 @@ def main() -> int:
     for k in NEW_KERNELS:
         counts[k], inputs[k], device_ms[k] = ops_counts[k], ops_inputs[k], ops_device_ms[k]
 
-    # -- 6: each kernel at the largest input the main paths gave it
+    # -- 6: the streaming containers and the query path at real size
+    t0 = time.perf_counter()
+    q_counts, q_inputs, q_device_ms, lzjf_inputs = query_phase(
+        np, torch, profile, ProfilerActivity, lines, raw_bytes, fmt, blob)
+    counts["distinct_counts"] = q_counts["distinct_counts"]
+    device_ms["distinct_counts"] = q_device_ms["distinct_counts"]
+    inputs["distinct_counts"] = q_inputs["distinct_counts"]
+    log(f"[query] phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 7: each kernel at the largest input the main paths gave it
     rows = []
     for name, kernel, plain, src, replaces in (
             ("wildcard_match", wm.wildcard_match, wm.wildcard_match_plain,
@@ -609,7 +860,9 @@ def main() -> int:
             ("simcount", sc.simcount, sc.simcount_plain,
              "src/repro_torch/csrc/simcount.cu", "src/repro/kernels/simcount.py:94"),
             ("match_extract", me.match_extract, me.match_extract_plain,
-             "src/repro_torch/csrc/match_extract.cu", "src/repro/kernels/match_extract.py:145")):
+             "src/repro_torch/csrc/match_extract.cu", "src/repro/kernels/match_extract.py:145"),
+            ("distinct_counts", sn.distinct_counts, sn.distinct_counts_plain,
+             "src/repro_torch/csrc/distinct_counts.cu", "src/repro/kernels/scan.py:60")):
         args = inputs[name]
         got, want = kernel(*args), plain(*args)
         got = got if isinstance(got, tuple) else (got,)
@@ -619,7 +872,7 @@ def main() -> int:
         # outputs stay in the graph's pool: fewer launches for the widest grid
         ms = kernel_device_ms(torch, kernel, args, 5 if name == "tokenize_hash" else 20)
         plain_ms = time_ms(torch, plain, args, 3)
-        library = LIBRARY_NOTE[name]
+        library, library_ms = LIBRARY_NOTE[name], None
         if name == "wildcard_match":
             (n, t), (k, tt) = args[0].shape, args[2].shape
             steps = matcher_steps(torch, *args)
@@ -655,6 +908,29 @@ def main() -> int:
             nops = valid * literals
             shape = f"N={n} T={t} K={k} Tt={tt}"
             work = f"{valid} valid log tokens x {literals} template literals"
+        elif name == "distinct_counts":
+            inv, w, n_bins = args
+            n = inv.numel()
+            # inv and w read once, the bins written once; one add a row
+            nbytes, nops = 8 * n + 4 * n_bins, n
+            shape = f"N={n} n_bins={n_bins}"
+            work = f"{n} rows"
+
+            def library_call(inv, w, n_bins):
+                return torch.zeros(n_bins, dtype=torch.int32, device=inv.device).index_add_(
+                    0, inv, w)
+
+            if not torch.equal(library_call(*args), got[0]):
+                raise AssertionError("index_add_ differs from distinct_counts on the main "
+                                     "path's input")
+            library_ms = time_ms(torch, library_call, args, 20)
+            library += f"; equal to the kernel on this input, {library_ms:.4f} ms"
+            for agg in ("count_by_template", "top_k Pid"):
+                a = lzjf_inputs[agg]
+                log(f"[bench] distinct_counts at the LZJF's {agg} input N={a[0].numel()} "
+                    f"n_bins={a[2]}: kernel {kernel_device_ms(torch, kernel, a, 20):.4f} ms, "
+                    f"index_add_ {time_ms(torch, library_call, a, 20):.4f} ms, bound "
+                    f"{(8 * a[0].numel() + 4 * a[2]) / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes)")
         else:
             (n, t), (k, tt), n_slots = args[0].shape, args[2].shape, args[4]
             steps = extract_steps(torch, *args[:4], got[0])
@@ -668,7 +944,7 @@ def main() -> int:
                      "launches": counts[name], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                     "library_ms": None, "library": library, "shape": shape, "bytes": nbytes,
+                     "library_ms": library_ms, "library": library, "shape": shape, "bytes": nbytes,
                      "operations": nops, "main_path_device_ms": device_ms[name]})
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version on {shape}")

@@ -2,7 +2,10 @@
 
 Layout mirrors ``repro`` module for module:
     repro_torch.core     -- the paper's batch codec (parse -> dedup ->
-                            ISE structure -> encode -> pack, and decode)
+                            ISE structure -> encode -> pack, and decode),
+                            streaming (LZJS) and multi-chunk (LZJM)
+                            containers, and the compressed-domain query
+                            engine
     repro_torch.kernels  -- hand-written CUDA kernels for the H100
                             (``csrc/``), their plain torch versions, and
                             the numpy in/out wrappers the pipeline calls

@@ -14,7 +14,7 @@ Layout of the final blob:
     b"LZJF" | u8 kernel_id | u8 level | kernel(container)
 where container is the object pack from ``encode.pack_container``.
 
-Session chunks (written by the reference's ``repro.core.stream``) carry
+Session chunks (written by ``core.stream``) carry
 ``meta["stream"] = {base, n_delta, used}``: the ``templates`` object
 holds only this chunk's template *delta* and EventIDs are global ids
 into the session's ``TemplateStore`` — decoding needs the accumulated
@@ -141,7 +141,7 @@ class ChunkReader:
     """Lazy, column-selective access to one unpacked archive chunk.
 
     ``decompress`` is ``ChunkReader(...).lines()``; the compressed-domain
-    query engine (the reference's ``repro.core.query``, DESIGN.md §11) uses the partial
+    query engine (``core.query``, DESIGN.md §11) uses the partial
     accessors instead — header columns, the EventID stream, one
     template's parameter columns — and only assembles the rows it needs
     (``line``/``content``), never paying for full-chunk materialization.
@@ -254,14 +254,16 @@ class ChunkReader:
         """Header column ``field`` as (distinct values, inverse) — the
         aggregation operators' entry point: predicates and group keys
         evaluate per distinct value, multiplicities come from the inverse
-        (rows are never materialized)."""
+        (rows are never materialized). Header columns hold their text, never
+        ParaIDs, so they decode as ``header_column`` does: without the
+        ParamDict (the reference passes it, and reads a text header column
+        of a level-3 chunk as ParaIDs)."""
         col = self._header_distinct.get(field)
         if col is None:
             if self.fmt is None or field not in self.fmt.fields or \
                     field == self.fmt.content_field:
                 raise ValueError(f"no header field {field!r} in this archive")
-            col = ColumnCodec(f"h.{field}").decode_distinct(
-                self.objects, self.n_ok, self.paravalues)
+            col = ColumnCodec(f"h.{field}").decode_distinct(self.objects, self.n_ok)
             self._header_distinct[field] = col
         return col
 
@@ -426,7 +428,7 @@ def resolve_templates(objects, meta, ext_templates=None) -> list[list[str | None
     """The template list the chunk's remapped EventIDs index into.
 
     Self-contained archives carry it whole. Session chunks carry their
-    template delta in the container record *frame* (the reference's ``repro.core.stream``
+    template delta in the container record *frame* (``core.stream``
     accumulates the deltas), so decoding one needs the accumulated global
     list via ``ext_templates``.
     """

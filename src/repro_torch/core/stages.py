@@ -6,7 +6,7 @@
 
 Each stage reads and fills declared fields of a ``Chunk`` — the unit of
 work for both the batch path (one chunk = the whole corpus) and a
-``StreamingCompressor`` session (the reference's ``repro.core.stream``, not yet ported: chunks cut by
+``StreamingCompressor`` session (``core.stream``: chunks cut by
 line/byte budget, sharing one growing ``TemplateStore``). The structure
 stage has two modes:
 
@@ -321,7 +321,7 @@ def encode_stage(ch: Chunk, cfg: LogzipConfig, tm: StageTimer,
     if ch.session:
         used = sorted(set(int(a) for a in assign if a >= 0))
         # the template delta rides in the container record FRAME (see
-        # the reference's repro.core.stream), not in the kernel-compressed blob — random
+        # core.stream), not in the kernel-compressed blob — random
         # access reads deltas without decoding chunk payloads
         delta = ch.tpl_strings[ch.tpl_base:ch.tpl_base + ch.n_delta]
         ch.delta_templates = [serialize_template(list(t)) for t in delta]
@@ -411,7 +411,7 @@ def run_stages(
     """parse -> dedup -> structure -> encode over one chunk — everything
     *except* the entropy kernel. ``pack_stage`` is split out so callers
     can overlap it with the next chunk's compute (the double-buffered
-    handoff in the reference's ``repro.core.stream`` / ``repro.core.parallel``: gzip of
+    handoff in ``core.stream`` / ``core.parallel``: gzip of
     chunk k runs on a worker thread — zlib/bz2/lzma release the GIL —
     while chunk k+1 is tokenized and matched here)."""
     cfg = cfg or LogzipConfig()

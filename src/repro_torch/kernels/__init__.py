@@ -5,6 +5,7 @@
 - tokenize_hash:       byte tokenizer masks + two rolling-hash prefix scans
 - simcount:            common-token counts φ of lines x templates
 - match_extract:       fused lowest-id match + per-star parameter spans
+- distinct_counts:     weighted histogram of an inverse index (query scans)
 
 Each module holds the kernel's wrapper, its plain torch version (run for
 CPU tensors) and its launch count; ``ops`` holds the numpy in/out wrappers

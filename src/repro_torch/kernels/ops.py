@@ -1,5 +1,5 @@
-"""numpy in/out wrappers over the port's kernels, as the pipeline and the
-kernel benchmark call them.
+"""numpy in/out wrappers over the port's kernels, as the pipeline, the
+query engine and the kernel benchmark call them.
 
 Each function takes the ``device`` the work runs on. On ``"cuda"`` the
 inputs go to the card and the hand-written CUDA kernel runs; a failure
@@ -20,6 +20,7 @@ import torch
 from ..core.textops import first_occurrence_unique, runs_of
 from . import colcodec as _cc
 from . import match_extract as _me
+from . import scan as _sn
 from . import simcount as _sc
 from . import tokenize as _tk
 from . import wildcard_match as _wm
@@ -41,12 +42,13 @@ def check_device(device) -> torch.device:
 
 
 # None, or a callable that each call of a kernel wrapper passes (kernel
-# name, the tuple of tensors given to the wrapper) before the call
+# name, the tuple of tensors given to the wrapper, and of its sizes where
+# they are not the tensors' shapes) before the call
 input_hook = None
 
 
 _KERNELS = {"wildcard_match": _wm, "colcodec_transform": _cc, "tokenize_hash": _tk,
-            "simcount": _sc, "match_extract": _me}
+            "simcount": _sc, "match_extract": _me, "distinct_counts": _sn}
 
 
 def launch_counts() -> dict[str, int]:
@@ -223,6 +225,28 @@ def delta_zigzag(vals: np.ndarray, lens: np.ndarray, mode: np.ndarray,
     if input_hook is not None:
         input_hook("colcodec_transform", args)
     return _cc.colcodec_transform(*args).cpu().numpy()
+
+
+# ------------------------------------------------- compressed-domain scan
+
+def distinct_counts(inv, n_bins: int, weights=None, *, device="cuda") -> np.ndarray:
+    """Weighted histogram of a distinct-row inverse index: ``out[b] =
+    sum(weights[i] for inv[i] == b)`` -> (n_bins,) int32, accumulated with
+    int32 wraparound. ``weights=None`` counts occurrences; rows with
+    ``inv`` outside ``[0, n_bins)`` add nothing."""
+    dev = check_device(device)
+    inv_np = np.asarray(inv, np.int64)
+    n = inv_np.shape[0]
+    if n == 0 or n_bins == 0:
+        return np.zeros(n_bins, np.int32)
+    w_np = np.ones(n, np.int32) if weights is None else np.asarray(weights, np.int32)
+    # out-of-range rows become -1 before the int32 cast, which would wrap
+    # an index of 2**32 + b onto bin b
+    inv_np = np.where((inv_np >= 0) & (inv_np < n_bins), inv_np, -1)
+    args = (_to(dev, inv_np), _to(dev, w_np), n_bins)
+    if input_hook is not None:
+        input_hook("distinct_counts", args)
+    return _sn.distinct_counts(*args).cpu().numpy()
 
 
 # --------------------------------------------------------- byte tokenizer

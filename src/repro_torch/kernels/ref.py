@@ -6,8 +6,8 @@ this module only gives it the reference's name, so tests hold
 ``repro.kernels.ref.X`` against ``repro_torch.kernels.ref.X``.
 ``match_extract_ref`` is, as in the reference, the host anchor matcher
 (``core.match.match_extract_one``), an implementation of the same DP
-tie-break independent of the kernel's. The oracle of the kernel not yet
-ported (``distinct_counts``) comes with its slice.
+tie-break independent of the kernel's. Every kernel of the JAX package
+has its oracle here.
 """
 
 from __future__ import annotations
@@ -16,13 +16,14 @@ import numpy as np
 
 from ..core.match import match_extract_one
 from .colcodec import colcodec_transform_plain as colcodec_transform_ref
+from .scan import distinct_counts_plain as distinct_counts_ref
 from .simcount import simcount_plain as simcount_ref
 from .tokenize import tokenize_hash_plain as tokenize_hash_ref
 from .wildcard_match import PAD_ID, STAR_ID
 from .wildcard_match import wildcard_match_plain as wildcard_match_ref
 
-__all__ = ["PAD_ID", "STAR_ID", "colcodec_transform_ref", "match_extract_ref",
-           "simcount_ref", "tokenize_hash_ref", "wildcard_match_ref"]
+__all__ = ["PAD_ID", "STAR_ID", "colcodec_transform_ref", "distinct_counts_ref",
+           "match_extract_ref", "simcount_ref", "tokenize_hash_ref", "wildcard_match_ref"]
 
 
 def match_extract_ref(logs, lens, templates, t_lens, n_slots: int):

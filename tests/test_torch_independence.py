@@ -2,6 +2,7 @@
 ``repro``, and it never carries on on the CPU when a card was asked for."""
 
 import ast
+import io
 import os
 import subprocess
 import sys
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import codec
+from repro_torch.core import codec, parallel, query, stream
 from repro_torch.core.encode import ColumnCodec
 from repro_torch.core.ise import iterative_structure_extraction
 from repro_torch.core.match import match_first
@@ -94,7 +95,34 @@ def _entry_points():
         "match_extract_empty": lambda: ops.match_extract(ids[:0], lens[:0], tpl, device="cuda"),
         "device_tokenize": lambda: ops.device_tokenize(["a b"], device="cuda"),
         "device_encode_batch": lambda: ops.device_encode_batch(["a b"], None, 4, device="cuda"),
+        "distinct_counts": lambda: ops.distinct_counts(lens, 3, device="cuda"),
+        "distinct_counts_empty": lambda: ops.distinct_counts(lens[:0], 3, device="cuda"),
+        "StreamingCompressor": lambda: _stream(codec.LogzipConfig(device="cuda")),
+        "compress_parallel": lambda: parallel.compress_parallel(
+            ["a b c"] * 4, codec.LogzipConfig(device="cuda"), n_workers=1, chunk_lines=2),
+        "seed_template_store": lambda: parallel.seed_template_store(
+            ["a b c"] * 4, codec.LogzipConfig(device="cuda")),
+        "count_by_template": lambda: query.count_by_template(_archive(), device="cuda"),
+        "top_k": lambda: query.top_k(_archive(), "Level", device="cuda"),
+        "time_histogram": lambda: query.time_histogram(_archive(), "Time", device="cuda"),
     }
+
+
+def _stream(cfg):
+    with stream.StreamingCompressor(io.BytesIO(), cfg) as sc:
+        sc.feed(["a b c"])
+
+
+def _archive():
+    """A screened LZJS archive: count_by_template reads its manifests and
+    opens no chunk, yet device="cuda" still raises without a card."""
+    from repro_torch.data.loggen import DATASETS, generate_lines
+
+    buf = io.BytesIO()
+    cfg = codec.LogzipConfig(format=DATASETS["HDFS"]["format"], device="cpu")
+    with stream.StreamingCompressor(buf, cfg, chunk_lines=50) as sc:
+        sc.feed(generate_lines("HDFS", 100, seed=1))
+    return buf.getvalue()
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))

@@ -228,7 +228,8 @@ def test_cpu_tensors_launch_nothing():
     ops.wildcard_match(logs, lens, tmpl, tlens, device="cpu")
     ops.delta_zigzag(logs, lens, np.ones(20, np.int32), device="cpu")
     assert ops.launch_counts() == {"wildcard_match": 0, "colcodec_transform": 0,
-                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0}
+                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0,
+                                   "distinct_counts": 0}
 
 
 def test_input_hook_sees_each_wrapper_call(monkeypatch):

@@ -197,8 +197,10 @@ def test_launch_counts_have_five_kernels_and_cpu_leaves_them_at_zero():
     ops.match_extract(ids, lens, templates, device="cpu")
     ops.simcount(ids, ops.pack_templates(templates)[0], device="cpu")
     ops.device_encode_batch(["a b", "c"], Vocab(), 4, device="cpu")
+    ops.distinct_counts(np.array([0, 1, 1], np.int32), 2, device="cpu")
     assert ops.launch_counts() == {"wildcard_match": 0, "colcodec_transform": 0,
-                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0}
+                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0,
+                                   "distinct_counts": 0}
 
 
 def test_kernel_bench_runs_on_cpu():
