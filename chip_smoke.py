@@ -7,25 +7,28 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit; build the six CUDA kernels
-   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
+1. print the card's name and power limit; build the seven CUDA kernels
+   from the six sources of ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once);
 2. hold each kernel against its plain torch version on the card, on
    edge-case inputs, with ``torch.equal`` (integer outputs: tolerance 0);
 3. the main path at real size: 1,000,000 HDFS lines (loggen, seed 42)
    through ``compress`` on the card (level 3, gzip, typed columns,
-   integrity) and back through ``decompress``; both kernels must have
-   been launched. The throughput comes from this run, with nothing
-   measuring inside it. A second compress of the same lines runs under
-   ``torch.profiler`` for each kernel's device time and the device's idle
-   share, and keeps the largest input each kernel was given. Both
-   archives must equal the port's ``device="cpu"`` archive byte for byte;
+   integrity) and back through ``decompress``; ``wildcard_match_first``
+   (every ``match_first``) and ``colcodec_transform`` must have been
+   launched, the (N, K) ``wildcard_match`` never. The throughput comes
+   from this run, with nothing measuring inside it. A second compress of
+   the same lines runs under ``torch.profiler`` for each kernel's device
+   time, the copies' and the device's idle share, and keeps the largest
+   input each kernel was given and every first-hit call. Both archives
+   must equal the port's ``device="cpu"`` archive byte for byte;
 4. the golden LZJF fixtures of ``tests/fixtures`` (HDFS, 400 lines, seed
    42): the container inside each archive built on the card must equal
    the fixture's (containers, not gzip streams, since zlib builds differ);
 5. the ops-layer device path at real size: 1,000,000 Spark lines
    (loggen, seed 3, the contents after ``": "``) through
    ``ops.device_encode_batch`` (``tokenize_hash``), ISE on the first
-   4,000 rows (``wildcard_match``), ``ops.match_extract`` over every row
+   4,000 rows (``wildcard_match_first``), ``ops.match_extract`` over every row
    and ``ops.simcount`` over the first 65,536 rows, on the card under
    ``torch.profiler``; the three kernels must have been launched. Then
    the host paths check it: ids, lengths and vocabulary equal
@@ -46,8 +49,11 @@ Phases, each of which raises on failure:
    fields' to a plain count over the parsed lines; and ``search`` /
    ``count`` predicates on the LZJS equal to a plain grep;
 7. time each kernel (device time, from a CUDA graph of launches) and its
-   plain version on the largest input the main paths gave it, and print
-   the ``kernels`` line and the result line.
+   plain version on the largest input the main paths gave it (the (N, K)
+   ``wildcard_match`` on the largest first-token bucket of phase 3's
+   first-hit calls), time ``ops.match_first_bucketed`` end to end against
+   the per-bucket composition it replaced, and print the ``kernels`` line
+   and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -57,6 +63,7 @@ when it is not run from a checkout that holds ``src/repro_torch``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -141,11 +148,97 @@ def dp_steps(torch, logs, at, runs, templates, t_lens) -> int:
     return total
 
 
+def token_bytes(torch, lens, width) -> int:
+    """Bytes of the tokens a matcher must read from a padded grid: the
+    first ``len`` of each row with ``0 <= len <= width``; a row wider than
+    the grid matches nothing and is never read, the padding never."""
+    return 4 * int(torch.where(lens <= width, lens.clamp(min=0), 0).sum())
+
+
 def matcher_steps(torch, logs, lens, templates, t_lens) -> int:
     """DP steps of the wildcard_match kernel: every pair of a line with
     ``len <= T`` and a template with ``t_len >= 0``, read at ``len``."""
     runs = (lens <= logs.shape[1])[:, None] & (t_lens >= 0)[None, :]
     return dp_steps(torch, logs, lens.clamp(min=0), runs, templates, t_lens)
+
+
+def first_hit_steps(torch, logs, lens, templates, t_lens, line_bucket, bucket_ptr, bucket_tpl,
+                    star_tpl, assign) -> int:
+    """DP steps the first-hit function needs: each line with ``len <= T``,
+    read at ``max(len, 0)``, runs its candidates (its bucket's templates
+    and the star-first ones) in ascending id up to its first hit, all of
+    them where it has none. The steps a 32-wide group of the kernel runs
+    past the hit are the design's cost, not the function's."""
+    n, k = logs.shape[0], templates.shape[0]
+    dev = logs.device
+    sizes = (bucket_ptr[1:] - bucket_ptr[:-1]).to(torch.int64)
+    tpl_bucket = torch.full((k,), -2, dtype=torch.int64, device=dev)
+    tpl_bucket[bucket_tpl.to(torch.int64)] = torch.repeat_interleave(
+        torch.arange(sizes.numel(), device=dev), sizes)
+    is_star = torch.zeros(k, dtype=torch.bool, device=dev)
+    is_star[star_tpl.to(torch.int64)] = True
+    a = assign.to(torch.int64)
+    last = torch.where(a >= 0, a, k - 1)
+    kidx = torch.arange(k, device=dev)
+    runs = (((tpl_bucket[None, :] == line_bucket.to(torch.int64)[:, None]) | is_star[None, :])
+            & (kidx[None, :] <= last[:, None]) & (lens <= logs.shape[1])[:, None]
+            & (t_lens >= 0)[None, :])
+    return dp_steps(torch, logs, lens.clamp(min=0), runs, templates, t_lens)
+
+
+def largest_bucket(torch, calls):
+    """The largest single first-token bucket (or the star-first list over
+    every line) of these ``wildcard_match_first`` calls, as the (N, K)
+    kernel's input: (logs, lens, templates cut to the bucket's widest,
+    t_lens), the bucket largest by the elements of those four."""
+    best, best_size = None, -1
+    for logs, lens, templates, t_lens, line_bucket, ptr, tpl, star in calls:
+        n, t = logs.shape
+        p = ptr.tolist()
+        lists = [(line_bucket == b, tpl[p[b]:p[b + 1]]) for b in range(len(p) - 1)]
+        lists.append((torch.ones(n, dtype=torch.bool, device=logs.device), star))
+        for rows, ids in lists:
+            nb, kb = int(rows.sum()), ids.numel()
+            if not (nb and kb):
+                continue
+            ids = ids.to(torch.int64)
+            tt = max(1, int(t_lens[ids].max()))
+            size = nb * t + nb + kb * tt + kb
+            if size > best_size:
+                best_size = size
+                best = (logs[rows].contiguous(), lens[rows].contiguous(),
+                        templates[ids, :tt].contiguous(), t_lens[ids].contiguous())
+    return best
+
+
+def match_first_per_bucket(np, ops, ids, lens, templates, device):
+    """The composition that ``ops.match_first_bucketed`` replaced, kept
+    here only to measure against: for each first-token bucket (and the
+    star-first list over every line), the lines gathered on the host, one
+    (N, K) ``wildcard_match`` launch, the matrix copied back, then any /
+    argmax / min on the host."""
+    n, n_tpl = ids.shape[0], len(templates)
+    best = np.full((n,), n_tpl, np.int64)
+    buckets, star = {}, []
+    for k, tpl in enumerate(templates):
+        if len(tpl):
+            (star if int(tpl[0]) == 1 else buckets.setdefault(int(tpl[0]), [])).append(k)
+
+    def run(sel, tidx):
+        sub = ops.wildcard_match_host(ids[sel], lens[sel], [templates[k] for k in tidx],
+                                      device=device)
+        any_m = sub.any(axis=1)
+        cand = np.asarray(tidx, np.int64)[sub.argmax(axis=1)]
+        best[sel[any_m]] = np.minimum(best[sel[any_m]], cand[any_m])
+
+    first = ids[:, 0] if ids.shape[1] else np.zeros((n,), np.int32)
+    for f, tidx in buckets.items():
+        sel = np.nonzero(first == f)[0]
+        if len(sel):
+            run(sel, tidx)
+    if star:
+        run(np.arange(n), star)
+    return np.where(best < n_tpl, best, -1).astype(np.int32)
 
 
 def extract_steps(torch, logs, lens, templates, t_lens, assign) -> int:
@@ -184,7 +277,8 @@ def wildcard_cases(np):
     cases = []
     for n, t, k, tt in [(4099, 128, 37, 128), (1000, 128, 9, 64), (2311, 12, 225, 9),
                         (777, 31, 13, 40), (555, 32, 11, 33), (333, 63, 7, 64),
-                        (257, 64, 5, 65), (129, 65, 3, 160), (0, 5, 3, 4), (5, 5, 0, 4)]:
+                        (257, 64, 5, 65), (129, 65, 3, 160), (60, 255, 9, 100), (0, 5, 3, 4),
+                        (5, 5, 0, 4)]:
         vocab = 6  # ids 2..7: literals hit often
         logs = rng.integers(2, 2 + vocab, (n, t)).astype(np.int32)
         lens = rng.integers(0, t + 1, (n,)).astype(np.int32)
@@ -213,6 +307,72 @@ def wildcard_cases(np):
         if n:
             lens[rng.random(n) < 0.05] = t + 3          # longer than the grid
         cases.append((f"N={n} T={t} K={k} Tt={tt}", logs, lens, tmpl, t_lens))
+    return cases
+
+
+def first_hit_cases(np, ops):
+    """(name, logs, lens, templates, t_lens, line_bucket, bucket_ptr,
+    bucket_tpl, star_tpl) cases for the first-hit matcher, its tables
+    built by ``ops.bucket_tables``: first hits in candidate groups 1-3 and
+    star ids that beat a bucket hit; random grids over a small vocabulary
+    at T around the 32-bit column words up to 255, with lines of length
+    0, T and T+1 and negative, lines whose first token has no bucket, a
+    bucket no line starts with, ``t_len < 0``; a star-only list; N = 0, no
+    templates, empty templates only."""
+    rng = np.random.default_rng(29)
+    cases = []
+
+    def add(name, logs, lens, templates, negative=0):
+        tmpl, tlens = ops.pack_templates(templates)
+        tables = ops.bucket_tables(logs, tmpl, tlens)
+        tlens[rng.permutation(len(tlens))[:negative]] = -1
+        cases.append((name, logs, lens, tmpl, tlens, *tables))
+
+    # one bucket of literal-first [2, 10 + id] with star-first ids 45, 70, 80
+    tpls = [np.array([1, 60] if i == 45 else [1, 110] if i == 70 else [1, 1, 15] if i == 80
+                     else [2, 10 + i], np.int32) for i in range(121)]
+    tpls.append(np.array([9, 1], np.int32))                       # a bucket with no line
+    rows = [[2, 10 + p] for p in (0, 5, 31, 32, 40, 63, 64, 69, 71, 99, 120, 300)]
+    rows += [[2, 60], [2, 110], [7, 15], [7, 60], [2, 15], [2]] * 50
+    logs = np.zeros((len(rows), 3), np.int32)
+    lens = np.array([len(r) for r in rows], np.int32)
+    for r, row in enumerate(rows):
+        logs[r, :len(row)] = row
+    add("groups 1-3, star beats bucket", logs, lens, tpls)
+
+    for n, t, k, star_share in [(4000, 12, 700, 0.05), (3000, 31, 300, 0.2),
+                                (3000, 32, 300, 0.2), (2000, 63, 200, 0.3),
+                                (2000, 64, 200, 0.3), (1000, 127, 150, 0.3),
+                                (1000, 128, 150, 0.3), (500, 255, 100, 0.3),
+                                (1500, 20, 120, 1.0)]:
+        vocab = 4  # template ids 2..5; lines also start with 6 and 7 (no bucket)
+        tpls = []
+        for _ in range(k):
+            m = int(rng.integers(3, 9))
+            tp = rng.integers(2, 2 + vocab, m).astype(np.int32)
+            tp[rng.random(m) < 0.2] = 1
+            tp[0] = 1 if rng.random() < star_share else rng.integers(2, 2 + vocab)
+            tpls.append(tp)
+        logs = rng.integers(2, 4 + vocab, (n, t)).astype(np.int32)
+        lens = rng.integers(0, t + 2, n).astype(np.int32)
+        for r in range(0, n, 2):                                  # planted matches
+            row = []
+            for tok in tpls[int(rng.integers(0, k))]:
+                row += rng.integers(2, 2 + vocab, int(rng.integers(1, max(2, t // 3)))).tolist() \
+                    if tok == 1 else [int(tok)]
+            if len(row) <= t:
+                logs[r, :len(row)] = row
+                lens[r] = len(row)
+        lens[:4] = [0, t, t + 1, -1]
+        for r in range(n):
+            logs[r, max(0, min(int(lens[r]), t)):] = 0
+        name = "star-only" if star_share == 1.0 else "mixed"
+        add(f"N={n} T={t} K={k} {name}", logs, lens, tpls, negative=k // 20)
+    logs = rng.integers(2, 6, (9, 5)).astype(np.int32)
+    lens = np.full(9, 5, np.int32)
+    add("N=0", logs[:0], lens[:0], [np.array([2, 1], np.int32)])
+    add("K=0", logs, lens, [])
+    add("empty templates only", logs, lens, [np.zeros(0, np.int32)] * 3)
     return cases
 
 
@@ -330,12 +490,15 @@ def distinct_counts_cases(np):
 # ------------------------------------------------------------------- phases
 
 NEW_KERNELS = ("tokenize_hash", "simcount", "match_extract")
-KERNEL_NAMES = {"wildcard_match": "wildcard_match_kernel", "colcodec_transform": "colcodec_kernel",
+KERNEL_NAMES = {"wildcard_match": "wildcard_match_kernel",
+                "wildcard_match_first": "wildcard_first_kernel", "colcodec_transform": "colcodec_kernel",
                 "tokenize_hash": "tokenize_hash_kernel", "simcount": "simcount_kernel",
                 "match_extract": "match_extract_kernel", "distinct_counts": "distinct_counts_"}
 # why no single PyTorch call stands beside a kernel as library_ms
 LIBRARY_NOTE = {
     "wildcard_match": "none: no PyTorch call runs a wildcard reachability DP",
+    "wildcard_match_first": "none: no PyTorch call runs a wildcard reachability DP, nor stops "
+                            "a line at its first hit",
     "colcodec_transform": "none: no PyTorch call does the per-row delta / zigzag / FoR with masks",
     "tokenize_hash": "none: no PyTorch call gives masks, starts and two weighted prefix sums "
                      "(torch.cumsum would be one of the six passes)",
@@ -357,9 +520,10 @@ def kernel_profile(prof) -> tuple[dict, dict]:
 
 
 @contextlib.contextmanager
-def capture_largest(ops):
+def capture_largest(ops, every=None):
     """Inside the block, keep by kernel the largest input its wrapper was
-    given (through ``ops.input_hook``) -> {kernel: args}."""
+    given (through ``ops.input_hook``) -> {kernel: args}; with ``every``, a
+    list, also append to it the input of each first-hit call."""
     sizes: dict[str, int] = {}
     largest: dict[str, tuple] = {}
 
@@ -367,6 +531,8 @@ def capture_largest(ops):
         size = sum(a.numel() for a in args if hasattr(a, "numel"))
         if size > sizes.get(name, -1):
             sizes[name], largest[name] = size, args
+        if every is not None and name == "wildcard_match_first":
+            every.append(args)
 
     ops.input_hook = keep
     try:
@@ -547,7 +713,8 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf):
         f"ratio {raw_bytes / len(lzjs):.3f} ({len(lzjs)} bytes)")
     log(f"[stream] stage seconds: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     log(f"[stream] launches: {json.dumps(counts)}")
-    if not (counts["wildcard_match"] >= n_chunks and counts["colcodec_transform"] > 0):
+    if not (counts["wildcard_match_first"] >= n_chunks and counts["colcodec_transform"] > 0
+            and counts["wildcard_match"] == 0):
         raise AssertionError(f"the session skipped a kernel in some chunk: {counts}, "
                              f"{n_chunks} chunks")
     t0 = time.perf_counter()
@@ -703,8 +870,8 @@ def main() -> int:
     def on(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    mism = {"wildcard_match": 0, "colcodec_transform": 0, "tokenize_hash": 0, "simcount": 0,
-            "match_extract": 0, "distinct_counts": 0}
+    mism = {"wildcard_match": 0, "wildcard_match_first": 0, "colcodec_transform": 0,
+            "tokenize_hash": 0, "simcount": 0, "match_extract": 0, "distinct_counts": 0}
     for name, *arrs in wildcard_cases(np):
         args = [on(a) for a in arrs]
         got = wm.wildcard_match(*args)
@@ -713,6 +880,15 @@ def main() -> int:
         bad = int((got != want).sum())
         mism["wildcard_match"] += bad + (not torch.equal(got, want))
         log(f"[check] wildcard_match {name}: {bad} mismatches, {int(want.sum())} matches")
+    for name, *arrs in first_hit_cases(np, ops):
+        args = [on(a) for a in arrs]
+        got = wm.wildcard_match_first(*args)
+        want = wm.wildcard_match_first_plain(*args)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        mism["wildcard_match_first"] += bad + (not torch.equal(got, want))
+        log(f"[check] wildcard_match_first {name}: {bad} mismatches, "
+            f"{int((want >= 0).sum())} of {want.numel()} lines matched")
     for name, *arrs in colcodec_cases(np):
         args = [on(a) for a in arrs]
         # uint32 has few CUDA operators: compare the values as int64
@@ -778,8 +954,10 @@ def main() -> int:
     torch.cuda.synchronize()
     comp_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    if not all(counts[k] > 0 for k in ("wildcard_match", "colcodec_transform")):
-        raise AssertionError(f"the main path skipped a kernel: {counts}")
+    if not (all(counts[k] > 0 for k in ("wildcard_match_first", "colcodec_transform"))
+            and counts["wildcard_match"] == 0):
+        raise AssertionError(f"the main path skipped a kernel or ran the (N, K) matcher: "
+                             f"{counts}")
     t0 = time.perf_counter()
     back = decompress(blob)
     dec_s = time.perf_counter() - t0
@@ -793,7 +971,9 @@ def main() -> int:
 
     # the same compress under the profiler, keeping each kernel's largest input
     ops.reset_launch_counts()
-    with capture_largest(ops) as largest, profile(activities=[ProfilerActivity.CUDA]) as prof:
+    first_calls: list = []
+    with capture_largest(ops, first_calls) as largest, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prof_blob = compress(lines, cfg)
         torch.cuda.synchronize()
@@ -811,6 +991,11 @@ def main() -> int:
     log(f"[profile] device busy {busy_ms:.3f} ms of {prof_s * 1e3:.1f} ms compress wall "
         f"(idle share {1 - busy_ms / (prof_s * 1e3):.6f}); by activity: "
         f"{json.dumps({k[:48]: [c, round(us / 1e3, 3)] for k, (c, us) in busy.items()})}")
+    copies = {d: [sum(c for k, (c, _) in busy.items() if d in k),
+                  round(sum(us for k, (_, us) in busy.items() if d in k) / 1e3, 3)]
+              for d in ("DtoH", "HtoD")}
+    log(f"[profile] copies under the profiler [count, device ms]: {json.dumps(copies)}; "
+        f"{len(first_calls)} first-hit calls over N = {[a[0].shape[0] for a in first_calls]}")
     t0 = time.perf_counter()
     cpu_blob = compress(lines, LogzipConfig(format=fmt, device="cpu"))
     log(f"[main] device='cpu' archive in {time.perf_counter() - t0:.2f} s")
@@ -836,6 +1021,11 @@ def main() -> int:
     # -- 5: the ops-layer device path at real size
     ops_counts, ops_inputs, ops_device_ms = ops_phase(np, torch, profile, ProfilerActivity)
     inputs = dict(largest)
+    # the (N, K) kernel no longer runs on any path: its input is the
+    # largest single bucket of phase 3's first-hit calls, as it was given
+    # when it ran once a bucket
+    inputs["wildcard_match"] = largest_bucket(torch, first_calls)
+    del first_calls
     for k in NEW_KERNELS:
         counts[k], inputs[k], device_ms[k] = ops_counts[k], ops_inputs[k], ops_device_ms[k]
 
@@ -852,6 +1042,8 @@ def main() -> int:
     rows = []
     for name, kernel, plain, src, replaces in (
             ("wildcard_match", wm.wildcard_match, wm.wildcard_match_plain,
+             "src/repro_torch/csrc/wildcard_match.cu", "src/repro/kernels/wildcard_match.py:103"),
+            ("wildcard_match_first", wm.wildcard_match_first, wm.wildcard_match_first_plain,
              "src/repro_torch/csrc/wildcard_match.cu", "src/repro/kernels/wildcard_match.py:103"),
             ("colcodec_transform", cc.colcodec_transform, cc.colcodec_transform_plain,
              "src/repro_torch/csrc/colcodec.cu", "src/repro/kernels/colcodec.py:85"),
@@ -876,11 +1068,31 @@ def main() -> int:
         if name == "wildcard_match":
             (n, t), (k, tt) = args[0].shape, args[2].shape
             steps = matcher_steps(torch, *args)
-            nbytes = 4 * (n * t + n + k * tt + k) + n * k
+            # the lines' and templates' tokens up to their lengths, the
+            # lengths, and one byte a pair out
+            nbytes = (token_bytes(torch, args[1], t) + token_bytes(torch, args[3], tt)
+                      + 4 * (n + k) + n * k)
             # one operation per column word per step run
             nops = steps * ((t + 32) // 32)
             shape = f"N={n} T={t} K={k} Tt={tt}"
             work = f"{steps} DP steps over {n * k} pairs"
+        elif name == "wildcard_match_first":
+            (n, t), (k, tt) = args[0].shape, args[2].shape
+            n_b, n_lit, n_star = args[5].numel() - 1, args[6].numel(), args[7].numel()
+            steps = first_hit_steps(torch, *args, got[0])
+            # what the function needs: the lines' and templates' tokens up to
+            # their lengths, the lengths, and the (N,) ids written once. The
+            # bucket tables (line_bucket, bucket_ptr, bucket_tpl, star_tpl)
+            # follow from the first tokens: they are the design's bytes
+            nbytes = (token_bytes(torch, args[1], t) + token_bytes(torch, args[3], tt)
+                      + 4 * (n + k) + 4 * n)
+            design = 4 * (n + n_b + 1 + n_lit + n_star)
+            nops = steps * ((t + 32) // 32)
+            shape = f"N={n} T={t} K={k} Tt={tt} B={n_b} bucket ids={n_lit} S={n_star}"
+            work = (f"{steps} DP steps over the candidates up to each line's first hit, "
+                    f"{int((got[0] >= 0).sum())} of {n} lines matched; the bucket tables "
+                    f"add {design} bytes, not counted")
+            first_args = args
         elif name == "colcodec_transform":
             r, c = args[0].shape
             # two differences, the zigzag's shift and xor per element
@@ -951,6 +1163,34 @@ def main() -> int:
         log(f"[bench] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: "
             f"{nbytes} bytes {bytes_ms:.6f} ms, {nops} int32 operations ({work}) "
             f"{ops_ms:.6f} ms; library: {library}")
+
+    # the whole op at the first-hit kernel's largest call: one launch and
+    # (N,) back, against one (N, K) launch a bucket with the matrices back
+    ids_np = first_args[0].cpu().numpy()
+    lens_np = first_args[1].cpu().numpy()
+    tmpl_np, tlens_np = first_args[2].cpu().numpy(), first_args[3].cpu().numpy()
+    tpl_list = [tmpl_np[i, :tlens_np[i]].copy() for i in range(len(tlens_np))]
+    whole = {}
+    for label, fn in (("match_first_bucketed (first-hit)", ops.match_first_bucketed),
+                      ("per-bucket (N, K) + any/argmax/min", functools.partial(
+                          match_first_per_bucket, np, ops)),
+                      ("match_first_bucketed (first-hit) again", ops.match_first_bucketed),
+                      ("per-bucket (N, K) + any/argmax/min again", functools.partial(
+                          match_first_per_bucket, np, ops))):
+        fn(ids_np, lens_np, tpl_list, device="cuda")  # warm up
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(ids_np, lens_np, tpl_list, device="cuda")
+        whole[label] = ((time.perf_counter() - t0) * 1e3 / reps, out)
+    a_new, a_old = whole["match_first_bucketed (first-hit)"][1], \
+        whole["per-bucket (N, K) + any/argmax/min"][1]
+    if not np.array_equal(a_new, a_old):
+        raise AssertionError(f"match_first_bucketed differs from the per-bucket composition on "
+                             f"{int((a_new != a_old).sum())} lines")
+    log(f"[bench] whole op at N={ids_np.shape[0]} K={len(tpl_list)}, host clock, {reps} calls "
+        f"each, in turns: " + "; ".join(f"{k} {v[0]:.3f} ms" for k, v in whole.items())
+        + "; equal assignments")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

@@ -2,7 +2,8 @@
 
 Compares, on Spark lines from loggen (seed 3) and templates that ISE
 extracts from the first 4,000 of them: the python trie, the numpy DP
-matcher and the ``wildcard_match`` kernel; the ``simcount`` kernel; the
+matcher and ``match_first`` through the ``wildcard_match_first`` kernel
+(one first-hit launch per call); the ``simcount`` kernel; the
 host ``tokenize_batch`` and the ``tokenize_hash`` kernel; and the host
 match + span extraction and the fused ``match_extract`` kernel. The
 matchers must agree (the asserts of ``run``).
@@ -71,7 +72,7 @@ def run(n_lines=20000, device="cuda") -> list[dict]:
 
     t0 = time.time()
     a_k = match_first(ids, lens, templates, use_kernel=True, device=device)
-    rows.append({"impl": f"wildcard_match ({label})",
+    rows.append({"impl": f"wildcard_match_first ({label})",
                  "lines_per_s": len(ids) / (time.time() - t0)})
 
     assert ((a_np >= 0) == (a_trie >= 0)).all()

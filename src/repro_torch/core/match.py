@@ -14,8 +14,9 @@ vectorized update over a whole *block of lines*, so the work is
 (lines x template positions) vector ops — this is exactly what
 the reference's Pallas kernel tiled onto VMEM, and what
 ``repro_torch.kernels.wildcard_match`` carries as bit-mask columns on
-the GPU. The numpy path here is the host path (``use_kernel=False``) and
-an oracle for the CUDA kernel.
+the GPU, where ``match_first`` runs the ``wildcard_match_first`` kernel
+(a warp a line, stopping at the first hit). The numpy path here is the
+host path (``use_kernel=False``) and an oracle for the CUDA kernel.
 
 Matching only needs the *final* DP column, so ``match_one_template``
 carries a rolling (N, T+1) column instead of materializing the full
@@ -245,9 +246,10 @@ def match_first(
     root, so each line only runs the DP against plausible candidates.
     With ``dedup`` (default) duplicate (ids, len) rows are matched once
     and the assignment is broadcast back — bit-identical results, and the
-    DP only pays for distinct lines. ``use_kernel`` runs the DP in the
-    ``wildcard_match`` CUDA kernel on ``device`` (its plain torch version
-    on a CPU device); False runs the numpy anchor matcher.
+    DP only pays for distinct lines. ``use_kernel`` runs the DP in one
+    launch of the ``wildcard_match_first`` CUDA kernel on ``device``
+    (its plain torch version on a CPU device), which returns the (N,)
+    assignment itself; False runs the numpy anchor matcher.
     """
     n = ids.shape[0]
     assign = np.full((n,), -1, np.int32)

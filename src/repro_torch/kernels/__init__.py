@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for the H100 (sources in ``repro_torch/csrc``).
 
-- wildcard_match:      batched wildcard-template matching (ISE, frozen store)
+- wildcard_match_first: lowest-id wildcard-template match per line, one
+                       first-hit launch per ``match_first`` (ISE, frozen store)
+- wildcard_match:      the (N, K) wildcard-template match matrix
 - colcodec_transform:  typed integer column transforms (delta / zigzag / FoR)
 - tokenize_hash:       byte tokenizer masks + two rolling-hash prefix scans
 - simcount:            common-token counts φ of lines x templates

@@ -47,18 +47,21 @@ def check_device(device) -> torch.device:
 input_hook = None
 
 
-_KERNELS = {"wildcard_match": _wm, "colcodec_transform": _cc, "tokenize_hash": _tk,
-            "simcount": _sc, "match_extract": _me, "distinct_counts": _sn}
+# kernel -> (its launch count, the count's reset)
+_KERNELS = {name: (mod.launches, mod.reset_launches) for name, mod in (
+    ("wildcard_match", _wm), ("colcodec_transform", _cc), ("tokenize_hash", _tk),
+    ("simcount", _sc), ("match_extract", _me), ("distinct_counts", _sn))}
+_KERNELS["wildcard_match_first"] = (_wm.first_launches, _wm.reset_first_launches)
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last ``reset_launch_counts``."""
-    return {name: mod.launches() for name, mod in _KERNELS.items()}
+    return {name: count() for name, (count, _) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.reset_launches()
+    for _, reset in _KERNELS.values():
+        reset()
 
 
 def _to(dev: torch.device, arr: np.ndarray) -> torch.Tensor:
@@ -109,56 +112,63 @@ def pack_templates(templates: list[np.ndarray], t_max: int | None = None) -> tup
 
 def wildcard_match_host(ids: np.ndarray, lens: np.ndarray, templates: list[np.ndarray],
                         *, device="cuda") -> np.ndarray:
-    """numpy in/out convenience used by ``match_first_bucketed``."""
+    """numpy in/out convenience: the (N, K) match matrix of a template list."""
     tmpl, tlens = pack_templates(templates)
     if tmpl.shape[0] == 0:
         return np.zeros((ids.shape[0], 0), bool)
     return wildcard_match(ids, lens, tmpl, tlens, device=device)
 
 
+def bucket_tables(ids: np.ndarray, tmpl: np.ndarray, tlens: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """First-token buckets of packed templates (the trie's root level) ->
+    (line_bucket (N,), bucket_ptr (B+1,), bucket_tpl, star_tpl), int32.
+
+    Non-empty templates whose first token is a literal form the buckets,
+    one per distinct first token in ascending order, each holding its
+    template ids ascending (CSR over ``bucket_ptr``); star-first ones go
+    to ``star_tpl``, ascending; empty ones (``tlens == 0``) match nothing
+    and go nowhere. A line's bucket is the one keyed by its first token
+    (0 for a grid of width 0), -1 where none is.
+    """
+    n, k = ids.shape[0], tmpl.shape[0]
+    first = tmpl[:, 0] if tmpl.shape[1] else np.zeros((k,), np.int32)
+    live = tlens != 0
+    star = live & (first == STAR_ID)
+    lit = np.flatnonzero(live & ~star)
+    order = np.argsort(first[lit], kind="stable")  # ascending ids within a key
+    bucket_tpl = lit[order]
+    keys, starts = np.unique(first[bucket_tpl], return_index=True)
+    bucket_ptr = np.append(starts, len(bucket_tpl))
+    line_first = ids[:, 0] if ids.shape[1] else np.zeros((n,), np.int32)
+    pos = np.searchsorted(keys, line_first)
+    found = pos < len(keys)
+    found[found] = keys[pos[found]] == line_first[found]
+    line_bucket = np.where(found, pos, -1)
+    return tuple(np.asarray(a, np.int32) for a in (line_bucket, bucket_ptr, bucket_tpl,
+                                                   np.flatnonzero(star)))
+
+
 def match_first_bucketed(ids: np.ndarray, lens: np.ndarray, templates: list[np.ndarray],
                          *, device="cuda") -> np.ndarray:
-    """Lowest-id matching template per line via the kernel, with
-    first-token bucketing (the trie's root-level pruning): templates are
-    grouped by their first literal token and each bucket's launch only
-    sees the lines that start with that token. Star-first templates run
-    against all lines. -> (N,) int32 assignment, -1 = none.
+    """Lowest-id matching template per line, with first-token bucketing
+    (the trie's root-level pruning): a line's candidates are the
+    templates whose first literal token is the line's first token, and
+    the star-first templates. One ``wildcard_match_first`` launch over
+    every line and template of the call; (N,) int32 comes back, -1 =
+    none. Lines longer than the grid (``len > T``) match nothing.
     """
     n = ids.shape[0]
-    n_tpl = len(templates)
-    best = np.full((n,), n_tpl, np.int64)  # sentinel: no match
-    if n == 0 or n_tpl == 0:
+    if n == 0 or not templates:
         return np.full((n,), -1, np.int32)
-
-    buckets: dict[int, list[int]] = {}
-    star_bucket: list[int] = []
-    for k, tpl in enumerate(templates):
-        if len(tpl) == 0:
-            continue  # empty templates match nothing (host semantics)
-        if int(tpl[0]) == STAR_ID:
-            star_bucket.append(k)
-        else:
-            buckets.setdefault(int(tpl[0]), []).append(k)
-
-    def run(line_sel: np.ndarray, tidx: list[int]) -> None:
-        sub = wildcard_match_host(ids[line_sel], lens[line_sel], [templates[k] for k in tidx],
-                                  device=device)
-        any_m = sub.any(axis=1)
-        if not any_m.any():
-            return
-        # tidx is ascending, argmax picks the first True -> lowest id in bucket
-        cand = np.asarray(tidx, np.int64)[sub.argmax(axis=1)]
-        rows = line_sel[any_m]
-        best[rows] = np.minimum(best[rows], cand[any_m])
-
-    first_tok = ids[:, 0] if ids.shape[1] else np.zeros((n,), np.int32)
-    for f, tidx in buckets.items():
-        sel = np.nonzero(first_tok == f)[0]
-        if len(sel):
-            run(sel, tidx)
-    if star_bucket:
-        run(np.arange(n), star_bucket)
-    return np.where(best < n_tpl, best, -1).astype(np.int32)
+    dev = check_device(device)
+    ids = np.asarray(ids, np.int32)
+    tmpl, tlens = pack_templates(templates)
+    tables = bucket_tables(ids, tmpl, tlens)
+    args = tuple(_to(dev, a) for a in (ids, lens, tmpl, tlens, *tables))
+    if input_hook is not None:
+        input_hook("wildcard_match_first", args)
+    return _wm.wildcard_match_first(*args).cpu().numpy()
 
 
 def simcount(logs, templates, *, device="cuda") -> np.ndarray:

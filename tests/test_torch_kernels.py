@@ -227,9 +227,9 @@ def test_cpu_tensors_launch_nothing():
     logs, lens, tmpl, tlens = _rand_case(rng, 20, 6, 3, 4)
     ops.wildcard_match(logs, lens, tmpl, tlens, device="cpu")
     ops.delta_zigzag(logs, lens, np.ones(20, np.int32), device="cpu")
-    assert ops.launch_counts() == {"wildcard_match": 0, "colcodec_transform": 0,
-                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0,
-                                   "distinct_counts": 0}
+    assert ops.launch_counts() == {"wildcard_match": 0, "wildcard_match_first": 0,
+                                   "colcodec_transform": 0, "tokenize_hash": 0, "simcount": 0,
+                                   "match_extract": 0, "distinct_counts": 0}
 
 
 def test_input_hook_sees_each_wrapper_call(monkeypatch):
@@ -287,6 +287,11 @@ def test_cuda_kernels_equal_plain_versions():
     for n, t, k, tt in [(300, 12, 9, 7), (1000, 128, 17, 128), (77, 31, 5, 40)]:
         case = [_t(a).cuda() for a in _edge_rows(rng, *_rand_case(rng, n, t, k, tt, vocab=4))]
         assert torch.equal(wm.wildcard_match(*case), wm.wildcard_match_plain(*case))
+    for n, t, k, tt in [(300, 12, 40, 7), (500, 64, 90, 20), (77, 255, 70, 40)]:
+        logs, lens, tmpl, tlens = _edge_rows(rng, *_rand_case(rng, n, t, k, tt, vocab=4))
+        case = [_t(a).cuda() for a in (logs, lens, tmpl, tlens,
+                                       *ops.bucket_tables(logs, tmpl, tlens))]
+        assert torch.equal(wm.wildcard_match_first(*case), wm.wildcard_match_first_plain(*case))
     for r, c in [(1, 1), (9, 130), (2, 100_000)]:
         case = [_t(a).cuda() for a in _col_case(rng, r, c, wide=True)]
         assert torch.equal(cc.colcodec_transform(*case).to(torch.int64),

@@ -198,9 +198,9 @@ def test_launch_counts_have_five_kernels_and_cpu_leaves_them_at_zero():
     ops.simcount(ids, ops.pack_templates(templates)[0], device="cpu")
     ops.device_encode_batch(["a b", "c"], Vocab(), 4, device="cpu")
     ops.distinct_counts(np.array([0, 1, 1], np.int32), 2, device="cpu")
-    assert ops.launch_counts() == {"wildcard_match": 0, "colcodec_transform": 0,
-                                   "tokenize_hash": 0, "simcount": 0, "match_extract": 0,
-                                   "distinct_counts": 0}
+    assert ops.launch_counts() == {"wildcard_match": 0, "wildcard_match_first": 0,
+                                   "colcodec_transform": 0, "tokenize_hash": 0, "simcount": 0,
+                                   "match_extract": 0, "distinct_counts": 0}
 
 
 def test_kernel_bench_runs_on_cpu():
@@ -210,7 +210,7 @@ def test_kernel_bench_runs_on_cpu():
     rows = kernel_bench.run(n_lines=2000, device="cpu")
     impls = [r["impl"] for r in rows]
     assert impls == [
-        "trie (python)", "DP matcher (numpy)", "wildcard_match (plain torch, cpu)",
+        "trie (python)", "DP matcher (numpy)", "wildcard_match_first (plain torch, cpu)",
         "simcount (plain torch, cpu)", "tokenize_batch (host numpy)",
         "tokenize_hash (plain torch, cpu)", "match+extract (host fused anchors)",
         "match_extract (plain torch, cpu)"]
