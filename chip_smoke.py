@@ -393,13 +393,18 @@ def colcodec_cases(np):
 
 
 def tokenize_cases(np):
-    """(name, blocks, lens) byte grids: widths around the 32-byte chunk
-    and far past it, empty rows, rows of delimiters only, lengths past B."""
+    """(name, blocks, lens) byte grids: empty rows, rows of delimiters
+    only, lengths past B; widths whose tile of whole rows is a multiple
+    of 16 bytes (1, 63, 125) and is not (64, 65, 300, 1001),
+    a row that just fits a 2,048-byte chunk with its lead (2033), rows
+    walked in two and three chunks (2034, 4097, 6000), row counts that
+    leave a partial last tile, and N = 0."""
     rng = np.random.default_rng(13)
     delims = np.frombuffer(b" \t,;:=", np.uint8)
     other = np.array([b for b in range(1, 256) if b not in delims], np.uint8)
     cases = []
-    for n, b in [(2000, 1), (2000, 63), (2000, 64), (2000, 65), (300, 4097), (0, 5)]:
+    for n, b in [(2000, 1), (2000, 63), (2000, 64), (2001, 65), (2003, 125), (777, 300),
+                 (51, 1001), (40, 2033), (30, 2034), (300, 4097), (9, 6000), (0, 5)]:
         blocks = np.where(rng.random((n, b)) < 1 / 3, rng.choice(delims, (n, b)),
                           rng.choice(other, (n, b))).astype(np.uint8)
         lens = rng.integers(0, b + 3, (n,)).astype(np.int32)
@@ -432,11 +437,19 @@ def simcount_cases(np):
 def match_extract_cases(np):
     """(name, logs, lens, templates, t_lens, n_slots) edge cases: all-star
     and zero-length templates, the over-length sentinel, len > T and
-    negative lengths, T = 128 with Tt = 129, K = 0, N = 0."""
+    negative lengths, T = 128 with Tt = 129, K = 0, N = 0; T at 32W - 1,
+    32W and 32W + 1 for every column width W up to T = 255; line counts
+    that leave a partial last tile; more templates than one shared-memory
+    stage holds (32); fewer slots than the templates' stars."""
     rng = np.random.default_rng(19)
     cases = []
-    for n, t, k, tt in [(3000, 16, 18, 15), (2000, 128, 9, 129), (1500, 31, 12, 40),
-                        (500, 5, 6, 4), (0, 5, 3, 4), (20, 5, 0, 1)]:
+    shapes = [(3000, 16, 18, 15, None), (2000, 128, 9, 129, None), (1500, 31, 12, 40, None),
+              (500, 5, 6, 4, None), (0, 5, 3, 4, None), (20, 5, 0, 1, None),
+              (3001, 16, 300, 12, None), (1001, 64, 100, 65, None), (1500, 20, 30, 12, 2),
+              (700, 40, 12, 30, 1)]
+    shapes += [(301, t, 6, 2 * t // 3, None)
+               for t in [32 * w + d for w in range(1, 9) for d in (-1, 0, 1)] if t <= 255]
+    for n, t, k, tt, slots in shapes:
         vocab = 5
         logs = rng.integers(2, 2 + vocab, (n, t)).astype(np.int32)
         lens = rng.integers(-1, t + 3, (n,)).astype(np.int32)
@@ -463,7 +476,7 @@ def match_extract_cases(np):
         for r in range(n):
             logs[r, max(0, min(int(lens[r]), t)):] = 0
         in_len = np.arange(tt)[None, :] < t_lens[:, None]
-        n_slots = max([1] + ((tmpl == 1) & in_len).sum(axis=1).tolist())
+        n_slots = slots or max([1] + ((tmpl == 1) & in_len).sum(axis=1).tolist())
         cases.append((f"N={n} T={t} K={k} Tt={tt}", logs, lens, tmpl, t_lens, n_slots))
     return cases
 
@@ -591,6 +604,8 @@ def ops_phase(np, torch, profile, activity):
         log(f"[ops] the profiler saw {seen} launches of {counts}: its device ms undercount")
     if not all(counts[k] > 0 for k in NEW_KERNELS):
         raise AssertionError(f"the ops-layer path skipped a kernel: {counts}")
+    if counts["tokenize_hash"] != 1 or counts["match_extract"] != 1:
+        raise AssertionError(f"tokenize_hash and match_extract launch once a call: {counts}")
 
     t0 = time.perf_counter()
     host_vocab = Vocab()
@@ -865,6 +880,15 @@ def main() -> int:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", text))
         log(f"[build] {name}: {len(regs)} kernel(s), {min(regs)}-{max(regs)} registers, "
             f"stack frames {min(stack)}-{max(stack)} bytes, {spills} bytes spilled")
+        if name in ("match_extract", "tokenize_hash"):  # redesigned: each instantiation
+            each = []
+            for part in text.split("Compiling entry function")[1:]:
+                targs = ",".join(re.findall(r"Li(\d+)E", part.split("'")[1]))
+                nregs = re.search(r"Used (\d+) registers", part)[1]
+                frame = re.search(r"(\d+) bytes stack frame", part)[1]
+                spill = re.search(r"(\d+) bytes spill stores", part)[1]
+                each.append(f"<{targs}> {nregs} registers, {frame} B stack, {spill} B spilled")
+            log(f"[build] {name} by instantiation: " + "; ".join(each))
 
     # -- 2: kernels against their plain versions on the card
     def on(a):
@@ -902,14 +926,22 @@ def main() -> int:
     for name, blocks, lens in tokenize_cases(np):
         pws = tk.hash_powers(blocks.shape[1])
         args = [on(blocks), on(lens), on(pws[0][0]), on(pws[1][0])]
-        got = tk.tokenize_hash(*args, delims)
-        want = tk.tokenize_hash_plain(*args, delims)
-        torch.cuda.synchronize()
-        # uint32 has few CUDA operators: compare the values as int64
-        bad = sum(int((g.to(torch.int64) != w.to(torch.int64)).sum()) for g, w in zip(got, want))
-        mism["tokenize_hash"] += bad + (not all(torch.equal(g.to(torch.int64), w.to(torch.int64))
-                                                for g, w in zip(got, want)))
-        log(f"[check] tokenize_hash {name}: {bad} mismatches, {int(want[1].sum())} tokens")
+        variants = [("", args)]
+        if blocks.size:  # the same grid 3 bytes past a 16-byte boundary: byte loads
+            view = torch.zeros(blocks.size + 3, dtype=torch.uint8, device=dev)[3:]
+            view = view.view(blocks.shape).copy_(args[0])
+            variants.append((", input at byte offset 3", [view] + args[1:]))
+        for tag, a in variants:
+            got = tk.tokenize_hash(*a, delims)
+            want = tk.tokenize_hash_plain(*a, delims)
+            torch.cuda.synchronize()
+            # uint32 has few CUDA operators: compare the values as int64
+            bad = sum(int((g.to(torch.int64) != w.to(torch.int64)).sum())
+                      for g, w in zip(got, want))
+            mism["tokenize_hash"] += bad + (not all(
+                torch.equal(g.to(torch.int64), w.to(torch.int64)) for g, w in zip(got, want)))
+            log(f"[check] tokenize_hash {name}{tag}: {bad} mismatches, "
+                f"{int(want[1].sum())} tokens")
     for name, *arrs in simcount_cases(np):
         args = [on(a) for a in arrs]
         got, want = sc.simcount(*args), sc.simcount_plain(*args)
@@ -1101,15 +1133,20 @@ def main() -> int:
             work = f"{r * c} elements"
         elif name == "tokenize_hash":
             n, b = args[0].shape
-            # a byte in, two int8 masks and two uint32 sums out; the lengths
-            # and the two power tables in
-            nbytes = 11 * n * b + 4 * n + 8 * b
+            # the bytes before each row's min(len, B) in (the rest of a row is
+            # never read: its outputs follow from the length), two int8 masks
+            # and two uint32 sums out over the whole grid; the lengths and the
+            # two power tables in
+            read = int(args[1].clamp(0, b).sum())
+            nbytes = read + 10 * n * b + 4 * n + 8 * b
+            padded = 11 * n * b + 4 * n + 8 * b
             # per byte: the delimiter lookup and test, the token and start
             # bits (4); per lane the weight's multiply, five scan adds and
             # the carry add (7)
             nops = 18 * n * b
             shape = f"N={n} B={b}"
-            work = f"{n * b} bytes"
+            work = (f"{n * b} bytes; {read} of them before min(len, B); the padded count "
+                    f"{padded} bytes, {padded / HBM_BYTES_PER_S * 1e3:.6f} ms")
         elif name == "simcount":
             (n, t), (k, tt) = args[0].shape, args[1].shape
             nbytes = 4 * (n * t + k * tt + n * k)
@@ -1146,10 +1183,18 @@ def main() -> int:
         else:
             (n, t), (k, tt), n_slots = args[0].shape, args[2].shape, args[4]
             steps = extract_steps(torch, *args[:4], got[0])
-            nbytes = 4 * (n * t + n + k * tt + k) + 4 * n * (1 + 2 * n_slots)
+            # the first min(len, T) tokens of each line with len >= 0 (the
+            # padding and the lines with len < 0 are never read), the
+            # templates' tokens up to their lengths, the lengths, and assign
+            # and the spans written once
+            line_bytes = 4 * int(torch.where(args[1] >= 0, args[1].clamp(max=t), 0).sum())
+            nbytes = (line_bytes + token_bytes(torch, args[3], tt) + 4 * (n + k)
+                      + 4 * n * (1 + 2 * n_slots))
+            padded = 4 * (n * t + n + k * tt + k) + 4 * n * (1 + 2 * n_slots)
             nops = steps * ((t + 32) // 32)
             shape = f"N={n} T={t} K={k} Tt={tt} n_slots={n_slots}"
-            work = f"{steps} DP steps (forward to the first hit, and the walk back)"
+            work = (f"{steps} DP steps (forward to the first hit, and the walk back); the "
+                    f"padded count {padded} bytes, {padded / HBM_BYTES_PER_S * 1e3:.6f} ms")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / INT32_OPS_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

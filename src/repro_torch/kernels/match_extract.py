@@ -3,9 +3,12 @@ plain torch version, and its launch count.
 
 Replaces the Pallas kernel ``_me_kernel`` behind
 ``repro.kernels.match_extract.match_extract`` of the JAX package. The
-kernel is ``csrc/match_extract.cu``: one thread per line, templates in
-ascending id until the first hit, the DP column as a bit mask (its note
-says what bounds it on the H100 and how the design meets that).
+kernel is ``csrc/match_extract.cu``: a block stages a tile of lines and
+the templates in shared memory, one thread runs the templates that can
+match its line in ascending id as one flat loop until the first hit,
+with the DP column as a bit mask, and the tile's spans leave as one
+coalesced run (its note says what bounds it on the H100 and how the
+design meets that).
 ``match_extract`` launches it for tensors on a CUDA device and runs
 ``match_extract_plain`` for tensors on the CPU; there is no other path.
 

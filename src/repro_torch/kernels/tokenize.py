@@ -3,10 +3,12 @@ plain torch version, and its launch count.
 
 Replaces the Pallas kernel ``_tokenize_kernel`` behind
 ``repro.kernels.tokenize.tokenize_hash`` of the JAX package. The kernel
-is ``csrc/tokenize_hash.cu`` (its note says what bounds it on the H100
-and how the design meets that). ``tokenize_hash`` launches it for
-tensors on a CUDA device and runs ``tokenize_hash_plain`` for tensors on
-the CPU; there is no other path.
+is ``csrc/tokenize_hash.cu``: a block takes a tile of whole rows as one
+flat run, eight bytes a thread and one segmented scan a chunk, with
+16-byte loads and stores through shared memory (its note says what
+bounds it on the H100 and how the design meets that). ``tokenize_hash``
+launches it for tensors on a CUDA device and runs ``tokenize_hash_plain``
+for tensors on the CPU; there is no other path.
 
 Lines arrive as a padded ``(N, B)`` uint8 grid with per-row lengths.
 Per byte the outputs are:

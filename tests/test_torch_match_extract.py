@@ -65,9 +65,13 @@ def _n_slots(tpls):
     return max([1] + [int((tp == 1).sum()) for tp in tpls])
 
 
-def _kernel_vs_pallas(logs, lens, tpls):
+def _kernel_vs_pallas(logs, lens, tpls, n_slots=None):
+    """The port against the Pallas kernel and both oracles; with ``n_slots``
+    below the templates' stars, against the oracles' first ``n_slots``
+    slots."""
     tmpl, tlens = ops.pack_templates(tpls)
-    n_slots = _n_slots(tpls)
+    n_all = _n_slots(tpls)
+    n_slots = n_slots or n_all
     assign, spans = (x.numpy() for x in me.match_extract(
         _t(logs), _t(lens), _t(tmpl), _t(tlens), n_slots))
     p_assign, p_spans = (np.asarray(x) for x in pallas_match_extract(
@@ -77,10 +81,11 @@ def _kernel_vs_pallas(logs, lens, tpls):
     hit = assign >= 0
     np.testing.assert_array_equal(spans[hit], p_spans[hit])
     assert not spans[~hit].any()
-    r_assign, r_spans = ref.match_extract_ref(logs, np.minimum(lens, logs.shape[1]), tmpl,
-                                              tlens, n_slots)
-    np.testing.assert_array_equal(assign[lens >= 0], r_assign[lens >= 0])
-    np.testing.assert_array_equal(spans[hit], r_spans[hit])
+    lc = np.minimum(lens, logs.shape[1])
+    for oracle in (ref.match_extract_ref, rref.match_extract_ref):
+        r_assign, r_spans = oracle(logs, lc, tmpl, tlens, n_all)
+        np.testing.assert_array_equal(assign[lens >= 0], r_assign[lens >= 0])
+        np.testing.assert_array_equal(spans[hit], r_spans[hit][:, :n_slots])
     return assign
 
 
@@ -231,17 +236,45 @@ def test_match_extract_rejects_what_the_kernel_does_not_take():
         me.match_extract(a, v, k, kl, 0)
 
 
+@pytest.mark.parametrize("n_slots", [1, 2, 3])
+@pytest.mark.parametrize("n,t,k,tt", [(200, 12, 6, 8), (65, 33, 5, 20)])
+def test_fewer_slots_than_stars_equals_reference(n, t, k, tt, n_slots):
+    """Slots past n_slots are dropped: the spans of the first n_slots stars
+    stay those of the walk back over every star, as in the Pallas kernel
+    given the same n_slots and the oracles' first n_slots columns."""
+    rng = np.random.default_rng(n + t + n_slots)
+    logs, lens, tpls = _case(rng, n, t, k, tt, star_rate=0.6)
+    assert _n_slots(tpls) > n_slots
+    _kernel_vs_pallas(logs, lens, tpls, n_slots)
+
+
+@pytest.mark.parametrize("t", [31, 32, 33, 63, 64, 65])
+def test_match_extract_equals_pallas_around_a_column_word(t):
+    """Lines of 32W - 1, 32W and 32W + 1 tokens: the DP column takes W or
+    W + 1 words of 32 positions in the CUDA kernel."""
+    rng = np.random.default_rng(t)
+    logs, lens, tpls = _case(rng, 65, t, 5, 2 * t // 3)
+    assert (_kernel_vs_pallas(logs, lens, tpls) >= 0).any()
+
+
 @pytest.mark.cuda
 def test_cuda_match_extract_equals_plain_version():
     """The CUDA kernel equals its plain version on the card (the
-    chip_smoke.py check, at test size)."""
+    chip_smoke.py check, at test size): T at 32W - 1, 32W and 32W + 1 up
+    to 255, line counts that leave a partial last block, more templates
+    than a stage holds, fewer slots than stars, K = 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     rng = np.random.default_rng(0)
-    for n, t, k, tt in [(300, 12, 9, 7), (500, 128, 7, 129), (77, 31, 5, 40), (5, 3, 0, 1)]:
+    shapes = [(300, 12, 9, 7, None), (500, 128, 7, 129, None), (77, 31, 5, 40, None),
+              (5, 3, 0, 1, None), (301, 16, 300, 12, None), (129, 20, 40, 10, 2)]
+    shapes += [(131, t, 6, 2 * t // 3, None)
+               for t in [32 * w + d for w in range(1, 9) for d in (-1, 0, 1)] if t <= 255]
+    for n, t, k, tt, slots in shapes:
         logs, lens, tpls = _case(rng, n, t, max(k, 1), tt)
         tmpl, tlens = ops.pack_templates(tpls[:k], t_max=tt)
+        n_slots = slots or _n_slots(tpls)
         args = [_t(a).cuda() for a in (logs, lens, tmpl, tlens)]
-        got = me.match_extract(*args, _n_slots(tpls))
-        want = me.match_extract_plain(*args, _n_slots(tpls))
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got = me.match_extract(*args, n_slots)
+        want = me.match_extract_plain(*args, n_slots)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (n, t, k, tt)

@@ -156,17 +156,41 @@ def test_tokenize_hash_rejects_what_the_kernel_does_not_take():
         tk.tokenize_hash(b, ln, pw, pw, (300,))
 
 
+@pytest.mark.parametrize("n,width", [(33, 61), (29, 70), (17, 125), (9, 127), (7, 300),
+                                     (3, 1001), (2, 2033), (2, 2034), (2, 4097), (1, 6000)])
+def test_tokenize_hash_equals_pallas_at_tile_edges(n, width):
+    """Widths at the CUDA kernel's tiling edges, as on the card: tiles of
+    whole rows that are and are not 16-byte multiples, a row that just
+    fits a 2,048-byte chunk with its lead, rows that take two and three
+    chunks."""
+    rng = np.random.default_rng(n * 7 + width)
+    blocks, lens = _grid(rng, n, width)
+    pws = tk.hash_powers(width)
+    got = tk.tokenize_hash(*_torch_args(blocks, lens, pws), DELIMS)
+    want = rtk.tokenize_hash(jnp.asarray(blocks), jnp.asarray(lens), jnp.asarray(pws[0][0]),
+                             jnp.asarray(pws[1][0]), delims=DELIMS, interpret=True)
+    for g, w, name in zip(got, want, ["mask", "starts", "pref1", "pref2"]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
 @pytest.mark.cuda
 def test_cuda_tokenize_hash_equals_plain_version():
     """The CUDA kernel equals its plain version on the card (the
-    chip_smoke.py check, at test size)."""
+    chip_smoke.py check, at test size): widths whose tiles are and are not
+    16-byte multiples, a row that just fits a chunk, rows walked in two
+    and three chunks, row counts that leave a partial last tile, and the
+    input 3 bytes past a 16-byte boundary."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     rng = np.random.default_rng(0)
-    for n, width in [(1, 1), (300, 63), (300, 64), (77, 65), (9, 4097)]:
+    for n, width in [(1, 1), (300, 63), (300, 64), (77, 65), (301, 125), (45, 300), (7, 1001),
+                     (5, 2033), (5, 2034), (9, 4097), (3, 6000)]:
         blocks, lens = _grid(rng, n, width)
         args = [a.cuda() for a in _torch_args(blocks, lens, tk.hash_powers(width))]
-        got = tk.tokenize_hash(*args, DELIMS)
-        want = tk.tokenize_hash_plain(*args, DELIMS)
-        for g, w in zip(got, want):
-            assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+        shifted = torch.zeros(n * width + 3, dtype=torch.uint8, device="cuda")[3:]
+        shifted = shifted.view(n, width).copy_(args[0])
+        for a in (args, [shifted] + args[1:]):
+            got = tk.tokenize_hash(*a, DELIMS)
+            want = tk.tokenize_hash_plain(*a, DELIMS)
+            for g, w in zip(got, want):
+                assert torch.equal(g.to(torch.int64), w.to(torch.int64))
