@@ -12,6 +12,7 @@ Phases, each of which raises on failure:
    source, all at once);
 2. hold each kernel against its plain torch version on the card, on
    edge-case inputs, with ``torch.equal`` (integer outputs: tolerance 0);
+   ``distinct_counts`` also on inputs one row past a 16-byte boundary;
 3. the main path at real size: 1,000,000 HDFS lines (loggen, seed 42)
    through ``compress`` on the card (level 3, gzip, typed columns,
    integrity) and back through ``decompress``; ``wildcard_match_first``
@@ -45,15 +46,20 @@ Phases, each of which raises on failure:
    LZJM and the LZJS, ``count_by_template``, ``top_k`` of two header
    fields and of one parameter column and ``time_histogram`` on the card
    under ``torch.profiler`` (``distinct_counts`` must have been
-   launched), each equal to its ``device="cpu"`` result and the header
-   fields' to a plain count over the parsed lines; and ``search`` /
-   ``count`` predicates on the LZJS equal to a plain grep;
-7. time each kernel (device time, from a CUDA graph of launches) and its
-   plain version on the largest input the main paths gave it (the (N, K)
+   launched, with no fill or memset beside it), each equal to its
+   ``device="cpu"`` result and the header fields' to a plain count over
+   the parsed lines; and ``search`` / ``count`` predicates on the LZJS
+   equal to a plain grep;
+7. time the card's empty-launch floor (a one-element ``fill_``) and each
+   kernel (device time, from a CUDA graph of launches) and its plain
+   version on the largest input the main paths gave it (the (N, K)
    ``wildcard_match`` on the largest first-token bucket of phase 3's
-   first-hit calls), time ``ops.match_first_bucketed`` end to end against
-   the per-bucket composition it replaced, and print the ``kernels`` line
-   and the result line.
+   first-hit calls); ``distinct_counts`` also at two LZJF inputs and at
+   the full LZJS chunks with the fewest and the most bins, each against
+   ``index_add_``; ``colcodec_transform`` also at the session's largest
+   input, times its launches; time ``ops.match_first_bucketed`` end to
+   end against the per-bucket composition it replaced, and print the
+   ``kernels`` line and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -419,18 +425,37 @@ def tokenize_cases(np):
 
 def simcount_cases(np):
     """(name, logs, templates) token grids: T around the 32-position word,
-    all-PAD rows, K = 0, N = 0, a wide template tile."""
+    all-PAD rows, K = 0, N = 0, a wide template tile; phase 5's shape (N =
+    65,536, T = 16, K = 18, Tt = 15); K = 33 and 65 (two and three tiles
+    of 32 templates); Tt = 1024 (MAX_TT: a tile of 4 templates fills the
+    token table), its ids spread over all of int32 so that they collide
+    in the table; templates that repeat a token; ids near 2**31 - 1 and
+    negative."""
     rng = np.random.default_rng(17)
     cases = []
     for n, t, k, tt in [(3000, 31, 40, 31), (3000, 32, 33, 32), (3000, 33, 31, 33),
                         (2000, 128, 70, 128), (100, 16, 0, 5), (0, 8, 5, 5),
-                        (500, 12, 9, 400)]:
+                        (500, 12, 9, 400), (65_536, 16, 18, 15), (3000, 16, 33, 15),
+                        (3000, 20, 65, 12)]:
         logs = rng.integers(0, 12, (n, t)).astype(np.int32)
         for r, ln in enumerate(rng.integers(0, t + 1, (n,))):
             logs[r, ln:] = 0
         logs[::9] = 0                                   # all-PAD rows
         tmpl = rng.integers(0, 12, (k, tt)).astype(np.int32)
         cases.append((f"N={n} T={t} K={k} Tt={tt}", logs, tmpl))
+    for n, t, k in [(2000, 40, 9), (1000, 16, 70)]:
+        tmpl = rng.integers(-2**31, 2**31, (k, 1024), dtype=np.int64).astype(np.int32)
+        tmpl[rng.random(tmpl.shape) < 0.05] = 1
+        tmpl[:, 900:] = 0                               # PAD tails
+        pool = np.concatenate([tmpl.ravel(), rng.integers(-2**31, 2**31, 4096).astype(np.int32)])
+        logs = rng.choice(pool, (n, t)).astype(np.int32)
+        cases.append((f"N={n} T={t} K={k} Tt=1024 ids over int32", logs, tmpl))
+    extreme = np.array([2**31 - 1, 2**31 - 2, -2**31, -2**31 + 1, -1, -7, 2, 0, 1], np.int32)
+    logs = rng.choice(extreme, (3000, 24)).astype(np.int32)
+    tmpl = rng.choice(extreme, (40, 10)).astype(np.int32)
+    tmpl[::3] = tmpl[::3, :1]                           # one token repeated over the row
+    tmpl[1::3, 5:] = tmpl[1::3, :5]                     # the first half again
+    cases.append(("N=3000 T=24 K=40 Tt=10 ids near 2**31 - 1 and negative, repeats", logs, tmpl))
     return cases
 
 
@@ -481,12 +506,15 @@ def match_extract_cases(np):
     return cases
 
 
-def distinct_counts_cases(np):
+def distinct_counts_cases(np, small_rows):
     """(name, inv, weights, n_bins): row counts around the Pallas kernel's
     8-row tile, bin counts around its 128-bin bucket and on both sides of
     the shared-memory limit (12,288 bins are 48 KB; 60,000 do not fit in
     227 KB), -1 and out-of-range rows, and weights negative and near 2**31
-    so that the int32 sums wrap."""
+    so that the int32 sums wrap; an LZJS chunk's 8,192 rows over 1, 2 and
+    3,999 bins; every row in one bin, the weights wrapping; row counts on
+    both sides of ``small_rows``, where the launcher goes from one
+    thread-block cluster to a cooperative grid."""
     rng = np.random.default_rng(23)
     near = np.array([2**31 - 1, 2**31 - 2, -2**31, -7, 3], np.int32)
     cases = []
@@ -497,6 +525,15 @@ def distinct_counts_cases(np):
                 inv[::5] = -1
                 inv[1::7] = n_bins + 1
             cases.append((f"N={n} n_bins={n_bins}", inv, rng.choice(near, n), n_bins))
+    for n, n_bins in [(8192, 1), (8192, 2), (8192, 3999), (small_rows - 1, 2),
+                      (small_rows, 40), (small_rows + 1, 40), (small_rows + 5, 60_000),
+                      (4 * small_rows + 3, 2)]:
+        inv = rng.integers(-1, n_bins + 1, n).astype(np.int32)
+        cases.append((f"N={n} n_bins={n_bins}", inv, rng.choice(near, n), n_bins))
+    for n in (8192, 1_000_000):
+        inv = np.zeros(n, np.int32)
+        cases.append((f"N={n} n_bins=5 every row in bin 0", inv,
+                      np.full(n, 2**31 - 3, np.int32), 5))
     return cases
 
 
@@ -533,10 +570,10 @@ def kernel_profile(prof) -> tuple[dict, dict]:
 
 
 @contextlib.contextmanager
-def capture_largest(ops, every=None):
+def capture_largest(ops, every=None, kernel="wildcard_match_first"):
     """Inside the block, keep by kernel the largest input its wrapper was
     given (through ``ops.input_hook``) -> {kernel: args}; with ``every``, a
-    list, also append to it the input of each first-hit call."""
+    list, also append to it the input of each call of ``kernel``."""
     sizes: dict[str, int] = {}
     largest: dict[str, tuple] = {}
 
@@ -544,7 +581,7 @@ def capture_largest(ops, every=None):
         size = sum(a.numel() for a in args if hasattr(a, "numel"))
         if size > sizes.get(name, -1):
             sizes[name], largest[name] = size, args
-        if every is not None and name == "wildcard_match_first":
+        if every is not None and name == kernel:
             every.append(args)
 
     ops.input_hook = keep
@@ -693,12 +730,14 @@ def aggregations(query, blob, device):
     return res, secs, stats
 
 
-def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf):
+def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small_rows):
     """Phase 6: LZJS and LZJM on the card at real size, each against its
     device="cpu" twin, then the aggregations and searches on the three
     archives -> (launch counts of the aggregations, the largest input of
     each kernel they launched, each kernel's device ms under the profiler,
-    {aggregation: its distinct_counts input on the LZJF})."""
+    {aggregation: its distinct_counts input on the LZJF}, {"fewest bins" /
+    "most bins": a full LZJS chunk's distinct_counts input}, (the session's
+    colcodec_transform launches, its largest input))."""
     import io
 
     from repro_torch.core import query
@@ -737,8 +776,14 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf):
         raise AssertionError("decompress_lzjs(LZJS) != lines")
     dec_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    if session("cpu")[0] != lzjs:
+    # the twin's inputs equal the card's (the archives are equal): keep
+    # its largest column-codec input for phase 7
+    with capture_largest(ops) as twin_largest:
+        twin = session("cpu")[0]
+    if twin != lzjs:
         raise AssertionError("the card's LZJS differs from the device='cpu' session's")
+    session_codec = (counts["colcodec_transform"],
+                     tuple(a.cuda() for a in twin_largest["colcodec_transform"]))
     log(f"[stream] decompress {dec_s:.2f} s; archive byte-identical to the device='cpu' "
         f"session's ({time.perf_counter() - t0:.2f} s)")
 
@@ -767,21 +812,47 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf):
 
     archives = {"lzjf": lzjf, "lzjm": lzjm, "lzjs": lzjs}
     results = {}
+    every: list = []  # each distinct_counts input, in call order
+    starts: dict[str, int] = {}  # each archive's first in it
     ops.reset_launch_counts()
-    with capture_largest(ops) as largest, profile(activities=[activity.CUDA]) as prof:
+    with capture_largest(ops, every, "distinct_counts") as largest, \
+            profile(activities=[activity.CUDA]) as prof:
         t0 = time.perf_counter()
         for kind, blob in archives.items():
+            starts[kind] = len(every)
             results[kind] = aggregations(query, blob, "cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
     device_ms, _ = kernel_profile(prof)
-    busy_ms = sum(us for _, us in device_us(prof).values()) / 1e3
+    busy = device_us(prof)
+    busy_ms = sum(us for _, us in busy.values()) / 1e3
     log(f"[query] launches of the aggregations: {json.dumps(counts)}; distinct_counts device "
         f"ms under the profiler {device_ms['distinct_counts']:.4f}; device busy {busy_ms:.3f} "
         f"ms of {wall_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.6f})")
     if counts["distinct_counts"] == 0:
         raise AssertionError("the aggregations never launched distinct_counts")
+    # one device op a call: no fill kernel or memset beside the kernel (a
+    # cluster up to small_rows rows, a cooperative grid above)
+    fills = sum(c for name, (c, _) in busy.items() if "fill" in name.lower())
+    memsets = sum(c for name, (c, _) in busy.items() if "memset" in name.lower())
+    grid_calls = sum(a[0].numel() > small_rows for a in every)
+    log(f"[query] device activities of the aggregations [count, ms]: "
+        f"{json.dumps({k[:60]: [c, round(us / 1e3, 4)] for k, (c, us) in busy.items()})}")
+    log(f"[query] fill kernels {fills}, memsets {memsets}; {len(every)} distinct_counts calls, "
+        f"{grid_calls} of them above {small_rows} rows")
+    if fills or memsets or len(every) != counts["distinct_counts"]:
+        raise AssertionError(f"a fill ({fills}) or memset ({memsets}) ran beside "
+                             f"distinct_counts, or the capture missed calls ({len(every)} of "
+                             f"{counts})")
+    # the LZJS chunks' inputs: the fewest and the most bins among full
+    # chunks (a chunk's rows are its lines that parse, about 8,180)
+    lzjs_in = every[starts["lzjs"]:]
+    full = max(a[0].numel() for a in lzjs_in)
+    full_chunks = [a for a in lzjs_in if 10 * a[0].numel() >= 9 * full]
+    chunk_inputs = {"fewest bins": min(full_chunks, key=lambda a: a[2]),
+                    "most bins": max(full_chunks, key=lambda a: a[2])}
+    del every
     # each aggregation's input on the LZJF (one chunk: one call each), for
     # timing the kernel at more than its largest input
     lzjf_args = []
@@ -832,7 +903,7 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf):
             f"grep; chunks opened {st.chunks_opened} of {st.chunks_total}, skipped by screen "
             f"{json.dumps(st.chunks_skipped_by)}, rows materialized {st.rows_materialized}")
     log(f"[search] ({time.perf_counter() - t0:.1f} s)")
-    return counts, largest, device_ms, lzjf_inputs
+    return counts, largest, device_ms, lzjf_inputs, chunk_inputs, session_codec
 
 
 def main() -> int:
@@ -958,15 +1029,23 @@ def main() -> int:
                                              and torch.equal(got[1], want[1])))
         log(f"[check] match_extract {name} n_slots={n_slots}: {bad} mismatches, "
             f"{int((want[0] >= 0).sum())} lines matched")
-    for name, inv, w, n_bins in distinct_counts_cases(np):
+    small = sn.small_rows()
+    log(f"[check] distinct_counts: one cluster up to {small} rows, a cooperative grid above")
+    for name, inv, w, n_bins in distinct_counts_cases(np, small):
         args = (on(inv), on(w), n_bins)
-        got, want = sn.distinct_counts(*args), sn.distinct_counts_plain(*args)
-        torch.cuda.synchronize()
-        bad = int((got != want).sum())
-        mism["distinct_counts"] += bad + (not torch.equal(got, want))
-        if len(inv) < 10_000 or n_bins in (129, 60_000):
-            log(f"[check] distinct_counts {name}: {bad} mismatches, "
-                f"{int((want != 0).sum())} non-zero bins")
+        variants = [("", args)]
+        if len(inv) in (8192, small + 1, 1_000_000):  # one row past 16 bytes: 4-byte loads
+            view = [torch.zeros(len(inv) + 1, dtype=torch.int32, device=dev)[1:].copy_(a)
+                    for a in args[:2]]
+            variants.append((", inputs at an offset of one row", (*view, n_bins)))
+        for tag, a in variants:
+            got, want = sn.distinct_counts(*a), sn.distinct_counts_plain(*a)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            mism["distinct_counts"] += bad + (not torch.equal(got, want))
+            if len(inv) < 10_000 or n_bins in (2, 40, 129, 60_000) or tag:
+                log(f"[check] distinct_counts {name}{tag}: {bad} mismatches, "
+                    f"{int((want != 0).sum())} non-zero bins")
     log(f"[check] mismatches per kernel: {json.dumps(mism)}")
     if any(mism.values()):
         raise AssertionError(f"kernels disagree with their plain versions: {mism}")
@@ -1063,14 +1142,19 @@ def main() -> int:
 
     # -- 6: the streaming containers and the query path at real size
     t0 = time.perf_counter()
-    q_counts, q_inputs, q_device_ms, lzjf_inputs = query_phase(
-        np, torch, profile, ProfilerActivity, lines, raw_bytes, fmt, blob)
+    q_counts, q_inputs, q_device_ms, lzjf_inputs, chunk_inputs, session_codec = query_phase(
+        np, torch, profile, ProfilerActivity, lines, raw_bytes, fmt, blob, small)
     counts["distinct_counts"] = q_counts["distinct_counts"]
     device_ms["distinct_counts"] = q_device_ms["distinct_counts"]
     inputs["distinct_counts"] = q_inputs["distinct_counts"]
     log(f"[query] phase 6 took {time.perf_counter() - t0:.1f} s")
 
     # -- 7: each kernel at the largest input the main paths gave it
+    # the card's empty-launch floor: one device op on one element, timed as
+    # the kernels are (printed beside them, never as a kernel's time)
+    one = torch.zeros(1, device=dev)
+    floor_ms = kernel_device_ms(torch, one.fill_, (1,), 20)
+    log(f"[bench] empty-launch floor: a one-element fill_, {floor_ms:.5f} ms a launch")
     rows = []
     for name, kernel, plain, src, replaces in (
             ("wildcard_match", wm.wildcard_match, wm.wildcard_match_plain,
@@ -1131,6 +1215,16 @@ def main() -> int:
             nbytes, nops = 8 * r * c + 12 * r, 4 * r * c
             shape = f"R={r} C={c}"
             work = f"{r * c} elements"
+            s_launches, s_args = session_codec
+            if not torch.equal(kernel(*s_args), plain(*s_args)):
+                raise AssertionError("colcodec_transform differs from its plain version at the "
+                                     "session's input")
+            s_ms = kernel_device_ms(torch, kernel, s_args, 20)
+            log(f"[bench] colcodec_transform at the LZJS session's largest chunk input "
+                f"R={s_args[0].shape[0]} C={s_args[0].shape[1]}: {s_ms:.5f} ms; x "
+                f"{s_launches} session launches = {s_launches * s_ms:.4f} ms of session device "
+                f"time (at most: the other chunks' inputs are no larger); floor "
+                f"{floor_ms:.5f} ms")
         elif name == "tokenize_hash":
             n, b = args[0].shape
             # the bytes before each row's min(len, B) in (the rest of a row is
@@ -1152,11 +1246,14 @@ def main() -> int:
             nbytes = 4 * (n * t + k * tt + n * k)
             valid = int(((args[0] != 0) & (args[0] != 1)).sum())
             literals = int(((args[1] != 0) & (args[1] != 1)).sum())
-            # the least the function needs: each valid log token against each
-            # template's literal tokens (PAD and STAR slots never match)
-            nops = valid * literals
+            # the least the function needs: one set lookup a valid log token
+            # (which of the templates hold it) and one count an output. The
+            # compare design's valid tokens x literals is a design's cost
+            nops = valid + n * k
             shape = f"N={n} T={t} K={k} Tt={tt}"
-            work = f"{valid} valid log tokens x {literals} template literals"
+            work = (f"{valid} valid log tokens + {n * k} outputs; a compare design would make "
+                    f"{valid} x {literals} template literals = {valid * literals}; floor "
+                    f"{floor_ms:.5f} ms")
         elif name == "distinct_counts":
             inv, w, n_bins = args
             n = inv.numel()
@@ -1174,12 +1271,26 @@ def main() -> int:
                                      "path's input")
             library_ms = time_ms(torch, library_call, args, 20)
             library += f"; equal to the kernel on this input, {library_ms:.4f} ms"
-            for agg in ("count_by_template", "top_k Pid"):
-                a = lzjf_inputs[agg]
-                log(f"[bench] distinct_counts at the LZJF's {agg} input N={a[0].numel()} "
-                    f"n_bins={a[2]}: kernel {kernel_device_ms(torch, kernel, a, 20):.4f} ms, "
-                    f"index_add_ {time_ms(torch, library_call, a, 20):.4f} ms, bound "
-                    f"{(8 * a[0].numel() + 4 * a[2]) / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes)")
+            if ms >= library_ms:
+                raise AssertionError("distinct_counts is slower than index_add_ on the main "
+                                     "path's largest input")
+            work += f"; floor {floor_ms:.5f} ms"
+            others = [(f"the LZJF's {agg} input", lzjf_inputs[agg])
+                      for agg in ("count_by_template", "top_k Pid")]
+            others += [(f"an LZJS chunk's input, the {which}", a)
+                       for which, a in chunk_inputs.items()]
+            for label, a in others:
+                if not torch.equal(kernel(*a), plain(*a)):
+                    raise AssertionError(f"distinct_counts differs from its plain version at "
+                                         f"{label}")
+                lib_a = time_ms(torch, library_call, a, 20)
+                kern_a = kernel_device_ms(torch, kernel, a, 20)
+                log(f"[bench] distinct_counts at {label} N={a[0].numel()} n_bins={a[2]}: "
+                    f"kernel {kern_a:.5f} ms, index_add_ {lib_a:.5f} ms, bound "
+                    f"{(8 * a[0].numel() + 4 * a[2]) / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes), "
+                    f"floor {floor_ms:.5f} ms")
+                if kern_a >= lib_a:
+                    raise AssertionError(f"distinct_counts is slower than index_add_ at {label}")
         else:
             (n, t), (k, tt), n_slots = args[0].shape, args[2].shape, args[4]
             steps = extract_steps(torch, *args[:4], got[0])
@@ -1203,6 +1314,8 @@ def main() -> int:
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "library_ms": library_ms, "library": library, "shape": shape, "bytes": nbytes,
                      "operations": nops, "main_path_device_ms": device_ms[name]})
+        if name in ("simcount", "distinct_counts"):  # beside the kernel, not its time
+            rows[-1]["launch_floor_ms"] = floor_ms
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version on {shape}")
         log(f"[bench] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: "

@@ -52,7 +52,16 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.distinct_counts_small_rows.argtypes = []
+        lib.distinct_counts_small_rows.restype = ctypes.c_longlong
     return lib
+
+
+def small_rows() -> int:
+    """Rows up to which the kernel runs as one thread-block cluster; above
+    it, as one cooperative grid. Either is one launch that writes every
+    bin. Builds the kernel."""
+    return int(_lib().distinct_counts_small_rows())
 
 
 def distinct_counts(inv: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -77,9 +86,9 @@ def distinct_counts(inv: torch.Tensor, weights: torch.Tensor, n_bins: int) -> to
         raise ValueError(f"no distinct_counts kernel for device {inv.device}")
     if not (inv.is_contiguous() and weights.is_contiguous()):
         raise ValueError("distinct_counts takes contiguous tensors")
-    out = torch.zeros(n_bins, dtype=torch.int32, device=inv.device)
     if inv.numel() == 0 or n_bins == 0:
-        return out
+        return torch.zeros(n_bins, dtype=torch.int32, device=inv.device)
+    out = torch.empty(n_bins, dtype=torch.int32, device=inv.device)  # the launcher writes it all
     with torch.cuda.device(inv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().distinct_counts_launch(inv.data_ptr(), weights.data_ptr(), out.data_ptr(),

@@ -23,7 +23,7 @@ import torch
 from ..core.tokenizer import PAD_ID, STAR_ID
 from . import build
 
-MAX_TT = 1024  # a tile of 32 template rows is staged in shared memory
+MAX_TT = 1024  # the kernel's token table holds a tile of 4 such templates
 # rows of lines per step of the plain version, so that its (rows, K, T)
 # boolean tiles stay near this many elements
 _PLAIN_TILE = 1 << 24

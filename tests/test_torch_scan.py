@@ -67,6 +67,41 @@ def test_distinct_counts_equals_pallas(n, n_bins, wide):
         jnp.asarray(inv), jnp.asarray(w), n_bins=n_bins, interpret=True))[0])
 
 
+# rows up to which the launcher runs one thread-block cluster (kSmallRows
+# of csrc/distinct_counts.cu); one cooperative grid above
+SMALL_ROWS = 16384
+# (n, n_bins, every row in bin 0): an LZJS chunk's 8,192 rows, row counts
+# on both sides of SMALL_ROWS, wrapping sums in one bin
+LAUNCH_CASES = [(8192, 1, False), (8192, 2, False), (8192, 3999, False),
+                (SMALL_ROWS - 1, 2, False), (SMALL_ROWS, 40, False), (SMALL_ROWS + 1, 40, False),
+                (SMALL_ROWS + 5, 60_000, False), (4 * SMALL_ROWS + 3, 2, False),
+                (8192, 5, True), (1_000_000, 5, True)]
+
+
+def _launch_case(n, n_bins, one_bin):
+    rng = np.random.default_rng(n + n_bins)
+    if one_bin:
+        return np.zeros(n, np.int32), np.full(n, I32.max - 2, np.int32)
+    return _case(rng, n, n_bins, wide=True)
+
+
+@pytest.mark.parametrize("n,n_bins,one_bin", LAUNCH_CASES)
+def test_distinct_counts_launch_cases_equal_pallas(n, n_bins, one_bin):
+    inv, w = _launch_case(n, n_bins, one_bin)
+    got = sn.distinct_counts(_t(inv), _t(w), n_bins)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n_bins,)
+    got = got.numpy()
+    np.testing.assert_array_equal(got, _wrapped(inv, w, n_bins))
+    np.testing.assert_array_equal(got, ref.distinct_counts_ref(_t(inv), _t(w), n_bins).numpy())
+    np.testing.assert_array_equal(got, np.asarray(rref.distinct_counts_ref(
+        jnp.asarray(inv), jnp.asarray(w), n_bins)))
+    np.testing.assert_array_equal(got, np.asarray(pallas_distinct_counts(
+        jnp.asarray(inv), jnp.asarray(w), n_bins=n_bins, interpret=True))[0])
+    if one_bin:  # n * (2**31 - 3), wrapped to int32
+        want = n * (int(I32.max) - 2) % 2**32
+        assert int(got[0]) == want - (want >= 2**31) * 2**32 and not got[1:].any()
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("n,n_bins", [(1, 1), (9, 129), (255, 127), (257, 200), (0, 5), (4, 0)])
 def test_ops_distinct_counts_equals_reference(n, n_bins, weighted):
@@ -114,11 +149,21 @@ def test_distinct_counts_rejects_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_cuda_distinct_counts_equals_plain_version():
     """The CUDA kernel equals its plain version on the card, on both sides
-    of the shared-memory limit (the chip_smoke.py check, at test size)."""
+    of the shared-memory limit and of the one-cluster row limit, with
+    aligned and unaligned inputs (the chip_smoke.py check, at test size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     rng = np.random.default_rng(0)
-    for n, n_bins in [(1, 1), (4097, 129), (9, 12_289), (5000, 60_000), (0, 4), (3, 0)]:
-        inv, w = (_t(a).cuda() for a in _case(rng, n, n_bins, wide=True))
+    assert sn.small_rows() == SMALL_ROWS
+    cases = [(_case(rng, n, n_bins, wide=True), n_bins) for n, n_bins in
+             [(1, 1), (4097, 129), (9, 12_289), (5000, 60_000), (0, 4), (3, 0)]]
+    cases += [(_launch_case(n, n_bins, one), n_bins) for n, n_bins, one in LAUNCH_CASES]
+    for arrs, n_bins in cases:
+        inv, w = (_t(a).cuda() for a in arrs)
         assert torch.equal(sn.distinct_counts(inv, w, n_bins),
                            sn.distinct_counts_plain(inv, w, n_bins))
+        # one row past a 16-byte boundary: the kernel's 4-byte loads
+        inv1, w1 = (torch.zeros(x.numel() + 1, dtype=torch.int32, device="cuda")[1:].copy_(x)
+                    for x in (inv, w))
+        assert torch.equal(sn.distinct_counts(inv1, w1, n_bins),
+                           sn.distinct_counts_plain(inv1, w1, n_bins))

@@ -31,6 +31,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import simcount as sc
 
 
+I32 = np.iinfo(np.int32)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.int32))
 
@@ -68,6 +71,51 @@ def test_simcount_equals_pallas(n, t, k, tt):
             jnp.asarray(logs), jnp.asarray(tmpl), interpret=True)))
     if k:
         np.testing.assert_array_equal(got, _host_phi(logs, tmpl))
+
+
+def _tile_case(name, rng):
+    """The kernel's edge cases (``chip_smoke.py`` phase 2): phase 5's shape,
+    several 32-template tiles, the widest templates (MAX_TT, whose ids
+    collide in the kernel's token table), repeated template tokens and ids
+    near 2**31 - 1 and negative."""
+    if name.startswith("ids over int32"):
+        n, t, k = {"ids over int32 T=40 K=9": (2000, 40, 9),
+                   "ids over int32 T=16 K=70": (1000, 16, 70)}[name]
+        tmpl = rng.integers(-2**31, 2**31, (k, sc.MAX_TT), dtype=np.int64).astype(np.int32)
+        tmpl[rng.random(tmpl.shape) < 0.05] = 1
+        tmpl[:, 900:] = 0
+        pool = np.concatenate([tmpl.ravel(), rng.integers(-2**31, 2**31, 4096).astype(np.int32)])
+        return rng.choice(pool, (n, t)).astype(np.int32), tmpl
+    if name == "ids near 2**31 - 1 and negative, repeats":
+        extreme = np.array([I32.max, I32.max - 1, I32.min, I32.min + 1, -1, -7, 2, 0, 1], np.int32)
+        logs = rng.choice(extreme, (3000, 24)).astype(np.int32)
+        tmpl = rng.choice(extreme, (40, 10)).astype(np.int32)
+        tmpl[::3] = tmpl[::3, :1]          # one token over the whole row
+        tmpl[1::3, 5:] = tmpl[1::3, :5]    # the first half again
+        return logs, tmpl
+    n, t, k, tt = {"phase 5 N=65536 T=16 K=18 Tt=15": (65_536, 16, 18, 15),
+                   "two tiles K=33": (3000, 16, 33, 15),
+                   "three tiles K=65": (3000, 20, 65, 12)}[name]
+    return _case(rng, n, t, k, tt)
+
+
+TILE_CASES = ["phase 5 N=65536 T=16 K=18 Tt=15", "two tiles K=33", "three tiles K=65",
+              "ids over int32 T=40 K=9", "ids over int32 T=16 K=70",
+              "ids near 2**31 - 1 and negative, repeats"]
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+def test_simcount_tile_cases_equal_pallas(name):
+    logs, tmpl = _tile_case(name, np.random.default_rng(len(name)))
+    got = sc.simcount(_t(logs), _t(tmpl))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (logs.shape[0], tmpl.shape[0])
+    got = got.numpy()
+    np.testing.assert_array_equal(got, ref.simcount_ref(_t(logs), _t(tmpl)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(rref.simcount_ref(jnp.asarray(logs),
+                                                                    jnp.asarray(tmpl))))
+    np.testing.assert_array_equal(got, np.asarray(pallas_simcount(
+        jnp.asarray(logs), jnp.asarray(tmpl), interpret=True)))
+    assert got.any()
 
 
 def test_simcount_plain_row_blocks(monkeypatch):
@@ -132,10 +180,13 @@ def test_simcount_rejects_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_cuda_simcount_equals_plain_version():
     """The CUDA kernel equals its plain version on the card (the
-    chip_smoke.py check, at test size)."""
+    chip_smoke.py check, at test size, and the tile cases)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     rng = np.random.default_rng(0)
-    for n, t, k, tt in [(300, 31, 33, 7), (1000, 128, 17, 128), (77, 33, 0, 4), (9, 1, 5, 400)]:
-        logs, tmpl = (_t(a).cuda() for a in _case(rng, n, t, k, tt))
+    cases = [_case(rng, n, t, k, tt) for n, t, k, tt in
+             [(300, 31, 33, 7), (1000, 128, 17, 128), (77, 33, 0, 4), (9, 1, 5, 400)]]
+    cases += [_tile_case(name, np.random.default_rng(len(name))) for name in TILE_CASES]
+    for arrs in cases:
+        logs, tmpl = (_t(a).cuda() for a in arrs)
         assert torch.equal(sc.simcount(logs, tmpl), sc.simcount_plain(logs, tmpl))
