@@ -12,17 +12,21 @@ Phases, each of which raises on failure:
    source, all at once);
 2. hold each kernel against its plain torch version on the card, on
    edge-case inputs, with ``torch.equal`` (integer outputs: tolerance 0);
-   ``distinct_counts`` also on inputs one row past a 16-byte boundary;
+   ``distinct_counts`` also on inputs one row past a 16-byte boundary,
+   ``colcodec_transform`` on inputs one element past one;
 3. the main path at real size: 1,000,000 HDFS lines (loggen, seed 42)
    through ``compress`` on the card (level 3, gzip, typed columns,
    integrity) and back through ``decompress``; ``wildcard_match_first``
    (every ``match_first``) and ``colcodec_transform`` must have been
-   launched, the (N, K) ``wildcard_match`` never. The throughput comes
+   launched (``colcodec_transform`` 6 times, once a kernel-safe integer
+   column), the (N, K) ``wildcard_match`` never. The throughput comes
    from this run, with nothing measuring inside it. A second compress of
    the same lines runs under ``torch.profiler`` for each kernel's device
    time, the copies' and the device's idle share, and keeps the largest
-   input each kernel was given and every first-hit call. Both archives
-   must equal the port's ``device="cpu"`` archive byte for byte;
+   input each kernel was given and every first-hit call; its
+   host-to-device copies must equal the wrappers' uploads, one a
+   ``colcodec_transform`` call. Both archives must equal the port's
+   ``device="cpu"`` archive byte for byte;
 4. the golden LZJF fixtures of ``tests/fixtures`` (HDFS, 400 lines, seed
    42): the container inside each archive built on the card must equal
    the fixture's (containers, not gzip streams, since zlib builds differ);
@@ -38,7 +42,9 @@ Phases, each of which raises on failure:
    ``common_token_count``;
 6. the streaming containers and the query path at real size, on the
    1,000,000 HDFS lines of phase 3: a ``StreamingCompressor`` session on
-   the card (LZJS v3 with screens, 8,192-line chunks) and
+   the card, timed with nothing measuring inside it (LZJS v3 with
+   screens, 8,192-line chunks; its ``colcodec_transform`` launches
+   printed) and
    ``compress_parallel`` over four spawned workers on the card (LZJM of
    the first 500,000 lines, a chunk per worker), each equal byte for byte
    to its ``device="cpu"``
@@ -57,8 +63,24 @@ Phases, each of which raises on failure:
    first-hit calls); ``distinct_counts`` also at two LZJF inputs and at
    the full LZJS chunks with the fewest and the most bins, each against
    ``index_add_``; ``colcodec_transform`` also at the session's largest
-   input, times its launches; time ``ops.match_first_bucketed`` end to
-   end against the per-bucket composition it replaced, and print the
+   input, times its launches, beside the floor; time
+   ``ops.match_first_bucketed`` end to end against the per-bucket
+   composition it replaced;
+8. durability, on the first 100,000 lines of phase 3, each step on the
+   card and on a ``device="cpu"`` twin: LZJS sessions written as the
+   reference's ingest daemon composes them (an empty archive first, then
+   an append session that fsyncs each commit, through a ``FaultyOpener``);
+   a clean one on the card under ``torch.profiler``, whose host-to-device
+   copies must equal the wrappers' uploads, one a ``colcodec_transform``
+   call, gives the cuts: torn halfway into chunk 4's record, at the end of chunk 6's commit
+   record and 40 bytes before the end (inside the footer): the wreckage,
+   the ``recover.repair`` report, the repaired bytes and the lines read
+   back (every committed chunk's) equal on both; the chunk-4 crash, whose
+   lines went through a ``WalWriter`` first, resumed through
+   ``ensure_clean``, ``replay_wal(start=committed lines)`` and an append
+   session, all lines back in order, the archive and the journal's
+   segments equal on both; ``wildcard_match_first`` and
+   ``colcodec_transform`` must have been launched. Then print the
    ``kernels`` line and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
@@ -90,6 +112,7 @@ LZJM_WORKERS = 4
 # 1,000,000 the script ran 711-800 s of its 1200 s on slower hosts
 LZJM_LINES = 500_000
 LZJM_CHUNK_LINES = LZJM_LINES // LZJM_WORKERS
+DURABLE_LINES = 100_000  # phase 8: the first lines of phase 3's corpus
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
 # one operation per lane per clock
@@ -383,11 +406,18 @@ def first_hit_cases(np, ops):
 
 
 def colcodec_cases(np):
+    """(name, vals, lens, mode, ref) grids: magnitudes at
+    ``coltypes.KERNEL_SAFE`` - 1, every third value at +-(2**28 - 1); the
+    LZJS session's widths (C = 8,185 and 8,192); C = 1, 2, 3, where a row
+    holds no whole 16-byte group; R = 3 at C = 5, 4,097 and 1,000,001,
+    whose rows start off a 16-byte boundary; lengths 0, 1 and 2 under every
+    mode; and values over all of int32, where the uint32 arithmetic wraps."""
     rng = np.random.default_rng(11)
+    lim = 1 << 28
     cases = []
     for r, c in [(1, 1), (3, 2), (8, 127), (9, 128), (5, 129), (4, 4096), (1, 1_000_000),
-                 (3, 1_000_000)]:
-        lim = 1 << 28
+                 (3, 1_000_000), (1, 8185), (1, 8192), (1, 2), (1, 3), (4, 1), (4, 3), (3, 5),
+                 (3, 4097), (3, 1_000_001)]:
         vals = rng.integers(-lim + 1, lim, (r, c)).astype(np.int32)
         vals[:, ::3] = np.where(rng.random((r, len(range(0, c, 3)))) < 0.5, lim - 1, -lim + 1)
         lens = rng.integers(0, c + 1, (r,)).astype(np.int32)
@@ -395,6 +425,21 @@ def colcodec_cases(np):
         mode = (np.arange(r) % 3 + 1).astype(np.int32)
         ref = np.where(mode == 3, vals.min(axis=1), 0).astype(np.int32)
         cases.append((f"R={r} C={c}", vals, lens, mode, ref))
+    for c in (3, 37, 4100):  # lengths 0, 1, 2 and C under modes 0-3
+        lens = np.tile(np.array([0, 1, 2, c], np.int32), 4)
+        mode = np.repeat(np.arange(4, dtype=np.int32), 4)
+        vals = rng.integers(-lim + 1, lim, (16, c)).astype(np.int32)
+        ref = rng.integers(-lim + 1, lim, 16).astype(np.int32)
+        cases.append((f"R=16 C={c} lens 0, 1, 2, C under every mode", vals, lens, mode, ref))
+    extreme = np.array([2**31 - 1, -2**31, -2**31 + 1, 2**31 - 2, -1, 0, 1, lim, -lim], np.int32)
+    for r, c in [(8, 4099), (1, 998_027)]:  # past KERNEL_SAFE: the arithmetic wraps
+        vals = rng.integers(-2**31, 2**31, (r, c), dtype=np.int64).astype(np.int32)
+        vals[:, 1::2] = rng.choice(extreme, (r, len(range(1, c, 2))))
+        lens = np.full(r, c, np.int32)
+        lens[1::3] = rng.integers(0, c + 1, len(range(1, r, 3)))
+        mode = (np.arange(r) % 4).astype(np.int32)
+        ref = rng.choice(extreme, r).astype(np.int32)
+        cases.append((f"R={r} C={c} values over all of int32", vals, lens, mode, ref))
     return cases
 
 
@@ -569,11 +614,19 @@ def kernel_profile(prof) -> tuple[dict, dict]:
     return ms, seen
 
 
+def uploads(args) -> int:
+    """Host-to-device copies that made a wrapper's inputs: one for each
+    non-empty device buffer among them (views of one buffer share it)."""
+    return len({a.untyped_storage().data_ptr() for a in args
+                if hasattr(a, "numel") and a.numel()})
+
+
 @contextlib.contextmanager
-def capture_largest(ops, every=None, kernel="wildcard_match_first"):
+def capture_largest(ops, every=None, kernel="wildcard_match_first", copies=None):
     """Inside the block, keep by kernel the largest input its wrapper was
     given (through ``ops.input_hook``) -> {kernel: args}; with ``every``, a
-    list, also append to it the input of each call of ``kernel``."""
+    list, also append to it the input of each call of ``kernel``; with
+    ``copies``, a dict, add to it by kernel the uploads of each call."""
     sizes: dict[str, int] = {}
     largest: dict[str, tuple] = {}
 
@@ -583,6 +636,8 @@ def capture_largest(ops, every=None, kernel="wildcard_match_first"):
             sizes[name], largest[name] = size, args
         if every is not None and name == kernel:
             every.append(args)
+        if copies is not None:
+            copies[name] = copies.get(name, 0) + uploads(args)
 
     ops.input_hook = keep
     try:
@@ -767,6 +822,9 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
         f"ratio {raw_bytes / len(lzjs):.3f} ({len(lzjs)} bytes)")
     log(f"[stream] stage seconds: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     log(f"[stream] launches: {json.dumps(counts)}")
+    log(f"[stream] colcodec_transform: {counts['colcodec_transform']} launches; this timed "
+        f"session runs with nothing measuring inside it, so its host-to-device copies are "
+        f"counted under the profiler in phase 8's clean session, on the same path")
     if not (counts["wildcard_match_first"] >= n_chunks and counts["colcodec_transform"] > 0
             and counts["wildcard_match"] == 0):
         raise AssertionError(f"the session skipped a kernel in some chunk: {counts}, "
@@ -906,6 +964,202 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
     return counts, largest, device_ms, lzjf_inputs, chunk_inputs, session_codec
 
 
+def tenant_session(cfg, path, lines, budget=None, wal_dir=None, resend_from=None):
+    """Phase 8's writer, composed as the reference's ingest daemon composes
+    it (``repro.ingest.service.TenantStore``): an empty archive at ``path``
+    published first (skipped when ``resend_from`` is given: the archive is
+    there), then an append session that fsyncs each chunk's commit and
+    writes through a ``FaultyOpener`` of ``budget`` bytes. With ``wal_dir``
+    each 8,192-line batch is journaled and synced through a ``WalWriter``
+    before the session is fed it, and each commit garbage-collects the
+    journal. ``resend_from`` is the resume: ``ensure_clean``, then
+    ``replay_wal(start=committed lines)`` fed first, the writer restarted
+    at the journal's end, then ``lines[resend_from:]`` as the client
+    re-sends them. At the first ``OSError`` the handles are dropped as a
+    killed process drops them -> (the error or None, lines replayed, the
+    journal's durable watermark: the lines acked to the client)."""
+    from repro_torch.core import recover, stream, wal
+    from repro_torch.core.faultinject import FaultyOpener
+
+    replayed = []
+    if resend_from is None:
+        stream.StreamingCompressor(path, cfg).close()
+        start = 0
+    else:
+        base = recover.ensure_clean(path)["n_lines"]
+        replay = wal.replay_wal(wal_dir, start=base)
+        replayed = [text for _, text in replay.records]
+        start = max(base, replay.end_seq)
+        if start != resend_from:
+            raise AssertionError(f"the journal resumes at {start}, the client at {resend_from}")
+    journal = wal.WalWriter(wal_dir, next_seq=start) if wal_dir else None
+    sc = stream.StreamingCompressor(
+        path, cfg, chunk_lines=STREAM_CHUNK_LINES, append=True, pipeline=False,
+        sync_on_commit=True, on_commit=journal.gc if journal else None,
+        opener=FaultyOpener(budget))
+    err = None
+    try:
+        sc.feed(replayed)
+        for s in range(start, len(lines), STREAM_CHUNK_LINES):
+            batch = lines[s:s + STREAM_CHUNK_LINES]
+            if journal:
+                for line in batch:
+                    journal.append(line)
+                journal.sync()
+            sc.feed(batch)
+        sc.close()
+        if journal:
+            journal.close()
+    except OSError as e:
+        err = e
+        if journal:
+            journal.abandon()
+        try:
+            sc._f.close()
+        except (OSError, ValueError):
+            pass
+    return err, len(replayed), journal.durable_seq if journal else None
+
+
+def durability_phase(torch, profile, activity, lines, fmt, device="cuda") -> dict:
+    """Phase 8: torn LZJS sessions repaired, and a session resumed from its
+    write-ahead journal, each step on ``device`` and on a ``device="cpu"``
+    twin, byte for byte -> the launch counts of the ``device`` runs. The
+    clean session that gives the cuts runs under ``torch.profiler``: its
+    host-to-device copies must equal the wrappers' uploads, one a
+    ``colcodec_transform`` call (phase 6's timed session is not profiled)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import recover, stream, wal
+    from repro_torch.core.codec import LogzipConfig
+    from repro_torch.core.stream import LZJSReader
+    from repro_torch.kernels import ops
+
+    def read(path):
+        rd = LZJSReader(path)
+        try:
+            return rd.read_all()
+        finally:
+            rd.close()
+
+    lines = lines[:DURABLE_LINES]
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="durability-", dir=ROOT / "build"))
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    try:
+        # the run on ``device`` and its twin on the CPU
+        cfgs = {side: LogzipConfig(format=fmt, device=d)
+                for side, d in (("main", device), ("twin", "cpu"))}
+        # a clean run on ``device`` gives the cuts (its bytes are checked
+        # against the twin's by the footer cut's wreckage, all but 40 bytes)
+        clean = work / "clean.lzjs"
+        wrapper_copies: dict[str, int] = {}
+        with capture_largest(ops, copies=wrapper_copies), \
+                profile(activities=[activity.CUDA]) as prof:
+            tenant_session(cfgs["main"], str(clean), lines)
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        h2d = sum(c for k, (c, _) in device_us(prof).items() if "HtoD" in k)
+        log(f"[durable] clean session under the profiler: colcodec_transform "
+            f"{counts['colcodec_transform']} launches, "
+            f"{wrapper_copies.get('colcodec_transform', 0)} uploads; host-to-device copies "
+            f"{h2d}, the wrappers' uploads {json.dumps(wrapper_copies)}")
+        if wrapper_copies.get("colcodec_transform", 0) != counts["colcodec_transform"] \
+                or not counts["colcodec_transform"] or h2d != sum(wrapper_copies.values()):
+            raise AssertionError("colcodec_transform made other than one upload a call, or the "
+                                 "session copied to the card outside the kernel wrappers")
+        data = clean.read_bytes()
+        if read(str(clean)) != lines:
+            raise AssertionError("the clean session does not read back its lines")
+        rd = LZJSReader(str(clean))
+        index, footer_at = [dict(e) for e in rd.index], rd.footer_offset
+        rd.close()
+        boot = work / "boot.lzjs"
+        stream.StreamingCompressor(str(boot), cfgs["twin"]).close()
+        rd = LZJSReader(str(boot))
+        written_from = rd.footer_offset  # where the append session's writes begin
+        rd.close()
+        log(f"[durable] {len(lines)} lines, {len(index)} chunks of {STREAM_CHUNK_LINES}; clean "
+            f"session on {device} {len(data)} bytes, footer at {footer_at}")
+
+        def commit_end(e):
+            return e["sc"][0] if "sc" in e else e["offset"] + e["length"]
+
+        e4 = index[4]
+        torn4 = e4["offset"] + e4["length"] // 2
+        cuts = {"halfway into chunk 4's record": torn4,
+                "at the end of chunk 6's commit record": commit_end(index[6]),
+                "40 bytes before the end, inside the footer": len(data) - 40}
+        resume, acked = {}, {}
+        for n, (label, cut) in enumerate(cuts.items()):
+            want = [line for e in index if commit_end(e) <= cut
+                    for line in lines[e["line_start"]:e["line_start"] + e["n_lines"]]]
+            got = {}
+            for side, cfg in cfgs.items():
+                path = work / f"torn-{n}-{side}.lzjs"
+                journal = work / f"wal-{side}" if cut == torn4 else None
+                t0 = time.perf_counter()
+                err, _, ack = tenant_session(cfg, str(path), lines, cut - written_from,
+                                             str(journal) if journal else None)
+                secs = time.perf_counter() - t0
+                wreck = path.read_bytes()
+                if err is None or len(wreck) != cut:
+                    raise AssertionError(f"{label}: the session did not fail at byte {cut} "
+                                         f"({err!r}, {len(wreck)} bytes landed)")
+                if journal:  # a copy for the resume, which repairs on its own
+                    acked[side] = ack
+                    resume[side] = (work / f"resume-{side}.lzjs", journal)
+                    resume[side][0].write_bytes(wreck)
+                report = recover.repair(str(path))
+                got[side] = (wreck, report, path.read_bytes(), read(str(path)), secs)
+            if got["main"][:4] != got["twin"][:4]:
+                raise AssertionError(f"{label}: the wreckage, repair report, repaired bytes or "
+                                     f"lines differ between {device} and cpu")
+            if got["main"][3] != want:
+                raise AssertionError(f"{label}: {len(got['main'][3])} lines read back after "
+                                     f"repair, {len(want)} were committed before the cut")
+            log(f"[durable] torn at byte {cut} ({label}): session {got['main'][4]:.2f} s on "
+                f"{device}, {got['twin'][4]:.2f} s on cpu; wreckage, repair report, repaired "
+                f"bytes and the {len(want)} lines read back equal on both; report "
+                f"{json.dumps(got['main'][1])}")
+
+        got = {}
+        for side, cfg in cfgs.items():
+            path, journal = resume[side]
+            at_crash = sorted(p.name for p in journal.iterdir())
+            t0 = time.perf_counter()
+            err, n_replayed, _ = tenant_session(cfg, str(path), lines, None, str(journal),
+                                                resend_from=acked[side])
+            secs = time.perf_counter() - t0
+            if err is not None:
+                raise AssertionError(f"the resumed session failed on {cfg.device}: {err!r}")
+            segs = {Path(p).name: Path(p).read_bytes()
+                    for _, p in wal._segment_paths(str(journal))}
+            got[side] = (path.read_bytes(), read(str(path)), segs, acked[side], at_crash,
+                         n_replayed, secs)
+        blob, back, segs, n_acked, at_crash, n_replayed, secs = got["main"]
+        if back != lines:
+            raise AssertionError(f"the resumed archive reads back {len(back)} lines, not the "
+                                 f"{len(lines)} fed")
+        if got["main"][:4] != got["twin"][:4]:
+            raise AssertionError(f"the resumed archive, the journal's segments or the acked "
+                                 f"lines differ between {device} and cpu")
+        log(f"[durable] resume after the chunk-4 crash: {n_acked} lines acked, journal "
+            f"segments {at_crash} at the crash; ensure_clean, then {n_replayed} lines replayed "
+            f"from the journal and {len(lines) - n_acked} re-sent; {secs:.2f} s on {device}, "
+            f"{got['twin'][6]:.2f} s on cpu; all {len(lines)} lines back in order, the archive "
+            f"({len(blob)} bytes) and the journal's remaining segments {sorted(segs)} equal on "
+            f"both")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = ops.launch_counts()
+    log(f"[durable] launches on {device}: {json.dumps(counts)}; phase 8 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -986,13 +1240,18 @@ def main() -> int:
             f"{int((want >= 0).sum())} of {want.numel()} lines matched")
     for name, *arrs in colcodec_cases(np):
         args = [on(a) for a in arrs]
-        # uint32 has few CUDA operators: compare the values as int64
-        got = cc.colcodec_transform(*args).to(torch.int64)
-        want = cc.colcodec_transform_plain(*args).to(torch.int64)
-        torch.cuda.synchronize()
-        bad = int((got != want).sum())
-        mism["colcodec_transform"] += bad + (not torch.equal(got, want))
-        log(f"[check] colcodec_transform {name}: {bad} mismatches")
+        # the same grid one element past a 16-byte boundary: its rows and
+        # the output's are on different phases, so every group is scalar
+        view = torch.zeros(args[0].numel() + 1, dtype=torch.int32, device=dev)[1:]
+        view = view.view(args[0].shape).copy_(args[0])
+        for tag, a in (("", args), (", input at an offset of one element", [view] + args[1:])):
+            # uint32 has few CUDA operators: compare the values as int64
+            got = cc.colcodec_transform(*a).to(torch.int64)
+            want = cc.colcodec_transform_plain(*a).to(torch.int64)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            mism["colcodec_transform"] += bad + (not torch.equal(got, want))
+            log(f"[check] colcodec_transform {name}{tag}: {bad} mismatches")
     delims = tuple(ord(c) for c in ops.DEFAULT_DELIMITERS)
     for name, blocks, lens in tokenize_cases(np):
         pws = tk.hash_powers(blocks.shape[1])
@@ -1069,6 +1328,9 @@ def main() -> int:
             and counts["wildcard_match"] == 0):
         raise AssertionError(f"the main path skipped a kernel or ran the (N, K) matcher: "
                              f"{counts}")
+    if counts["colcodec_transform"] != 6:  # one a kernel-safe integer column
+        raise AssertionError(f"colcodec_transform launched {counts['colcodec_transform']} "
+                             f"times, not 6")
     t0 = time.perf_counter()
     back = decompress(blob)
     dec_s = time.perf_counter() - t0
@@ -1083,7 +1345,8 @@ def main() -> int:
     # the same compress under the profiler, keeping each kernel's largest input
     ops.reset_launch_counts()
     first_calls: list = []
-    with capture_largest(ops, first_calls) as largest, \
+    wrapper_copies: dict[str, int] = {}
+    with capture_largest(ops, first_calls, copies=wrapper_copies) as largest, \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prof_blob = compress(lines, cfg)
@@ -1101,12 +1364,18 @@ def main() -> int:
         f"{json.dumps({k: round(v, 3) for k, v in device_ms.items()})}")
     log(f"[profile] device busy {busy_ms:.3f} ms of {prof_s * 1e3:.1f} ms compress wall "
         f"(idle share {1 - busy_ms / (prof_s * 1e3):.6f}); by activity: "
-        f"{json.dumps({k[:48]: [c, round(us / 1e3, 3)] for k, (c, us) in busy.items()})}")
+        f"{json.dumps({k[:60]: [c, round(us / 1e3, 3)] for k, (c, us) in busy.items()})}")
     copies = {d: [sum(c for k, (c, _) in busy.items() if d in k),
                   round(sum(us for k, (_, us) in busy.items() if d in k) / 1e3, 3)]
               for d in ("DtoH", "HtoD")}
     log(f"[profile] copies under the profiler [count, device ms]: {json.dumps(copies)}; "
         f"{len(first_calls)} first-hit calls over N = {[a[0].shape[0] for a in first_calls]}")
+    log(f"[profile] host-to-device copies {copies['HtoD'][0]} (31 with four uploads a "
+        f"colcodec_transform call); the wrappers' uploads {json.dumps(wrapper_copies)}")
+    if wrapper_copies["colcodec_transform"] != counts["colcodec_transform"] \
+            or copies["HtoD"][0] != sum(wrapper_copies.values()):
+        raise AssertionError("colcodec_transform made other than one upload a call, or the "
+                             "compress copied to the card outside the kernel wrappers")
     t0 = time.perf_counter()
     cpu_blob = compress(lines, LogzipConfig(format=fmt, device="cpu"))
     log(f"[main] device='cpu' archive in {time.perf_counter() - t0:.2f} s")
@@ -1224,7 +1493,8 @@ def main() -> int:
                 f"R={s_args[0].shape[0]} C={s_args[0].shape[1]}: {s_ms:.5f} ms; x "
                 f"{s_launches} session launches = {s_launches * s_ms:.4f} ms of session device "
                 f"time (at most: the other chunks' inputs are no larger); floor "
-                f"{floor_ms:.5f} ms")
+                f"{floor_ms:.5f} ms, the launch at {s_ms / floor_ms:.2f}x it")
+            work += f"; at the session's largest input {s_ms:.5f} ms; floor {floor_ms:.5f} ms"
         elif name == "tokenize_hash":
             n, b = args[0].shape
             # the bytes before each row's min(len, B) in (the rest of a row is
@@ -1314,8 +1584,10 @@ def main() -> int:
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "library_ms": library_ms, "library": library, "shape": shape, "bytes": nbytes,
                      "operations": nops, "main_path_device_ms": device_ms[name]})
-        if name in ("simcount", "distinct_counts"):  # beside the kernel, not its time
+        if name in ("colcodec_transform", "simcount", "distinct_counts"):  # not its time
             rows[-1]["launch_floor_ms"] = floor_ms
+        if name == "colcodec_transform":
+            rows[-1]["session_input_ms"] = s_ms
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version on {shape}")
         log(f"[bench] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: "
@@ -1349,6 +1621,11 @@ def main() -> int:
     log(f"[bench] whole op at N={ids_np.shape[0]} K={len(tpl_list)}, host clock, {reps} calls "
         f"each, in turns: " + "; ".join(f"{k} {v[0]:.3f} ms" for k, v in whole.items())
         + "; equal assignments")
+
+    # -- 8: durability: torn sessions repaired, a session resumed from its journal
+    d_counts = durability_phase(torch, profile, ProfilerActivity, lines, fmt)
+    if not (d_counts["wildcard_match_first"] > 0 and d_counts["colcodec_transform"] > 0):
+        raise AssertionError(f"the durability phase skipped a kernel: {d_counts}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

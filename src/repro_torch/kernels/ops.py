@@ -219,7 +219,10 @@ def delta_zigzag(vals: np.ndarray, lens: np.ndarray, mode: np.ndarray,
     ``coltypes.KERNEL_SAFE``.
 
     The frame-of-reference row minimum is computed here, over the valid
-    prefix, and handed to the kernel as data.
+    prefix, and handed to the kernel as data. Values, lengths, modes and
+    minima go to the device as one int32 buffer in one copy; the kernel's
+    four arguments are views of it. The buffer is made anew for each call,
+    so concurrent callers share nothing.
     """
     dev = check_device(device)
     vals = np.asarray(vals, np.int32)
@@ -228,10 +231,18 @@ def delta_zigzag(vals: np.ndarray, lens: np.ndarray, mode: np.ndarray,
     r, width = vals.shape
     if r == 0:
         return np.zeros((0, width), np.uint32)
+    if lens_np.shape != (r,) or mode_np.shape != (r,):
+        raise ValueError(f"lens and mode must have shape ({r},), got {lens_np.shape} and "
+                         f"{mode_np.shape}")
     pos_ok = np.arange(width)[None, :] < lens_np[:, None]
     ref = np.where(pos_ok, vals, np.iinfo(np.int32).max).min(axis=1)
     ref = np.where((mode_np == 3) & (lens_np > 0), ref, 0).astype(np.int32)
-    args = (_to(dev, vals), _to(dev, lens_np), _to(dev, mode_np), _to(dev, ref))
+    n = r * width
+    packed = np.empty(n + 3 * r, np.int32)
+    packed[:n] = vals.ravel()
+    packed[n:n + r], packed[n + r:n + 2 * r], packed[n + 2 * r:] = lens_np, mode_np, ref
+    buf = torch.from_numpy(packed).to(dev)
+    args = (buf[:n].view(r, width), buf[n:n + r], buf[n + r:n + 2 * r], buf[n + 2 * r:])
     if input_hook is not None:
         input_hook("colcodec_transform", args)
     return _cc.colcodec_transform(*args).cpu().numpy()

@@ -9,6 +9,7 @@ LZJF fixtures. Each package must read the other's archives.
 """
 
 import fixture_defs as fd
+import jax
 import numpy as np
 import pytest
 
@@ -24,6 +25,17 @@ from repro_torch.data import loggen
 DATASETS = list(rloggen.DATASETS)
 N_LINES = 2000
 _LINES: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_jax_caches():
+    """The reference's 2,000-line compresses trace its jitted column
+    transform at the (8, 2048) bucket. Left in JAX's caches, that trace
+    would make a later test in the same worker that counts its own traces
+    of that bucket (tests/test_coltypes.py::test_kernel_bucketed_no_retrace)
+    count none, so the caches are dropped when this module is done."""
+    yield
+    jax.clear_caches()
 
 
 def lines_of(ds: str, n: int = N_LINES, seed: int = 5) -> list[str]:

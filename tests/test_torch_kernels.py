@@ -159,16 +159,31 @@ def test_match_first_bucketed_equals_reference(seed):
 # ----------------------------------------------------- colcodec_transform
 
 def _col_case(rng, r, c, wide):
+    """A column grid; with ``r == 16``, lengths 0, 1, 2 and C under each
+    of the modes 0-3 (chip_smoke.py phase 2's case of short rows)."""
     lim = 1 << 31 if wide else 1 << 28
     vals = rng.integers(-lim + 1, lim, (r, c)).astype(np.int32)
     vals[:, ::4] = np.where(rng.random(vals[:, ::4].shape) < 0.5, lim - 1, -lim + 1)
     lens = rng.integers(0, c + 2, (r,)).astype(np.int32)
     mode = rng.integers(0, 4, (r,)).astype(np.int32)
     refv = rng.integers(-lim + 1, lim, (r,)).astype(np.int32)
+    if r == 16:
+        lens = np.tile(np.array([0, 1, 2, c], np.int32), 4)
+        mode = np.repeat(np.arange(4, dtype=np.int32), 4)
     return vals, lens, mode, refv
 
 
-@pytest.mark.parametrize("r,c", [(1, 1), (3, 5), (8, 128), (9, 130), (17, 300)])
+# chip_smoke.py phase 2's shapes beside the Pallas tile's (RN = 8): the
+# LZJS session's widths (8,185 and 8,192); C = 1, 2, 3, where the CUDA
+# kernel has no whole 16-byte group; R = 3 at C = 5, 4,097 and 1,000,001,
+# whose rows start off a 16-byte boundary; lengths 0, 1, 2 under every
+# mode (R = 16); ``wide`` puts values over all of int32, where the uint32
+# arithmetic wraps
+COL_SHAPES = [(1, 1), (3, 5), (8, 128), (9, 130), (17, 300), (1, 8185), (1, 8192), (1, 2),
+              (1, 3), (4, 3), (3, 4097), (3, 1_000_001), (16, 3), (16, 37), (16, 4100)]
+
+
+@pytest.mark.parametrize("r,c", COL_SHAPES)
 @pytest.mark.parametrize("wide", [False, True])
 def test_colcodec_plain_equals_reference(r, c, wide):
     rng = np.random.default_rng(r * 1000 + c + wide)
@@ -253,6 +268,31 @@ def test_input_hook_sees_each_wrapper_call(monkeypatch):
     assert all(a.dtype == torch.int32 for a in (*m_args, *c_args))
 
 
+def test_delta_zigzag_uploads_one_buffer(monkeypatch):
+    """``ops.delta_zigzag`` hands the kernel four int32 views of one buffer
+    (one upload on a card), and returns what the reference returns."""
+    rng = np.random.default_rng(3)
+    vals, lens, _, _ = _col_case(rng, 5, 41, wide=False)
+    mode = np.array([1, 2, 3, 0, 3], np.int32)
+    seen = []
+    monkeypatch.setattr(ops, "input_hook", lambda name, args: seen.append((name, args)))
+    got = ops.delta_zigzag(vals, lens, mode, device="cpu")
+    np.testing.assert_array_equal(got, np.asarray(rops.delta_zigzag(vals, lens, mode)))
+    (name, args), = seen
+    assert name == "colcodec_transform" and len(args) == 4
+    assert all(a.dtype == torch.int32 and a.is_contiguous() for a in args)
+    assert len({a.untyped_storage().data_ptr() for a in args}) == 1
+    assert args[0].untyped_storage().nbytes() == 4 * (vals.size + 3 * len(lens))
+    np.testing.assert_array_equal(args[0].numpy(), vals)
+    np.testing.assert_array_equal(args[1].numpy(), lens)
+    np.testing.assert_array_equal(args[2].numpy(), mode)
+    ref_row = np.where(np.arange(41)[None, :] < lens[:, None], vals, 2**31 - 1).min(axis=1)
+    np.testing.assert_array_equal(args[3].numpy(),
+                                  np.where((mode == 3) & (lens > 0), ref_row, 0))
+    with pytest.raises(ValueError):
+        ops.delta_zigzag(vals, lens[:1], mode, device="cpu")
+
+
 def test_no_fallback_in_kernel_modules():
     """No try/except in the kernel layer: a build or launch failure on a
     CUDA tensor raises, it never turns into the plain path."""
@@ -292,7 +332,8 @@ def test_cuda_kernels_equal_plain_versions():
         case = [_t(a).cuda() for a in (logs, lens, tmpl, tlens,
                                        *ops.bucket_tables(logs, tmpl, tlens))]
         assert torch.equal(wm.wildcard_match_first(*case), wm.wildcard_match_first_plain(*case))
-    for r, c in [(1, 1), (9, 130), (2, 100_000)]:
-        case = [_t(a).cuda() for a in _col_case(rng, r, c, wide=True)]
-        assert torch.equal(cc.colcodec_transform(*case).to(torch.int64),
-                           cc.colcodec_transform_plain(*case).to(torch.int64))
+    for r, c in [(2, 100_000)] + COL_SHAPES:
+        for wide in (False, True):
+            case = [_t(a).cuda() for a in _col_case(rng, r, c, wide)]
+            assert torch.equal(cc.colcodec_transform(*case).to(torch.int64),
+                               cc.colcodec_transform_plain(*case).to(torch.int64))
