@@ -66,22 +66,37 @@ Phases, each of which raises on failure:
    input, times its launches, beside the floor; time
    ``ops.match_first_bucketed`` end to end against the per-bucket
    composition it replaced;
-8. durability, on the first 100,000 lines of phase 3, each step on the
-   card and on a ``device="cpu"`` twin: LZJS sessions written as the
-   reference's ingest daemon composes them (an empty archive first, then
-   an append session that fsyncs each commit, through a ``FaultyOpener``);
-   a clean one on the card under ``torch.profiler``, whose host-to-device
-   copies must equal the wrappers' uploads, one a ``colcodec_transform``
-   call, gives the cuts: torn halfway into chunk 4's record, at the end of chunk 6's commit
-   record and 40 bytes before the end (inside the footer): the wreckage,
-   the ``recover.repair`` report, the repaired bytes and the lines read
-   back (every committed chunk's) equal on both; the chunk-4 crash, whose
-   lines went through a ``WalWriter`` first, resumed through
-   ``ensure_clean``, ``replay_wal(start=committed lines)`` and an append
-   session, all lines back in order, the archive and the journal's
-   segments equal on both; ``wildcard_match_first`` and
-   ``colcodec_transform`` must have been launched. Then print the
-   ``kernels`` line and the result line.
+8. durability, on the first 100,000 lines of phase 3: sessions of the
+   port's ``TenantStore`` (an empty archive first, then an append session
+   that fsyncs each commit, every line journaled first), its archive
+   written through a ``FaultyOpener``; a clean one on the card under
+   ``torch.profiler``, whose host-to-device copies must equal the
+   wrappers' uploads, one a ``colcodec_transform`` call, and whose bytes
+   must equal a ``device="cpu"`` twin's, gives the cuts: torn halfway into
+   chunk 4's record, at the end of chunk 6's commit record and 40 bytes
+   before the end (inside the footer), each wreck the clean stream's bytes
+   up to the cut and its ``recover.repair`` keeping every committed
+   chunk's lines; the chunk-4 crash resumed by a new store from copies of
+   its wreck and journal on the card and on the CPU (``ensure_clean``,
+   the journal replayed from the committed lines, the client's re-send),
+   all lines back in order, equal archives on both;
+   ``wildcard_match_first`` and ``colcodec_transform`` must have been
+   launched;
+9. the ingest daemon, the lifecycle layer and the CLI on the card: one
+   ``IngestDaemon`` with a ``RetentionManager``, four tenants of 100,000
+   lines of phase 3's corpus over one unix socket, a client thread each,
+   every line acked, then a drain that seals each session and compacts it
+   into the sealed tier, each sealed archive decoding to its lines, no
+   tenant failure and no open breaker, ``wildcard_match_first`` and
+   ``colcodec_transform`` launched in the feed and in the drain; a tenant
+   cut halfway by a forced abort and resumed by a fresh daemon from the
+   handshake's watermark, every line once; phase 8's clean archive
+   ``compact``-ed on the card and its ``device="cpu"`` twin's on the CPU
+   (a process of its own), equal bytes; the CLI as processes with
+   ``--device cuda``: ``serve --retention`` drained by SIGTERM, ``pack``
+   / ``unpack`` byte-equal, ``agg`` equal to ``--device cpu``'s, each
+   process printing its launch counts. Then print the ``kernels`` line
+   and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -90,12 +105,16 @@ when it is not run from a checkout that holds ``src/repro_torch``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -113,6 +132,15 @@ LZJM_WORKERS = 4
 LZJM_LINES = 500_000
 LZJM_CHUNK_LINES = LZJM_LINES // LZJM_WORKERS
 DURABLE_LINES = 100_000  # phase 8: the first lines of phase 3's corpus
+# phase 9: the feed's tenants split the first lines of phase 3's corpus.
+# At 250,000 lines a tenant (all 1,000,000) the feed ran 349 s at 2,864
+# lines/s and the phase 595 s on an H100 80GB HBM3 host: cut to 100,000
+INGEST_TENANTS = 4
+INGEST_TENANT_LINES = 100_000
+INGEST_CRASH_LINES = 50_000  # the crash leg's tenant
+INGEST_CLI_LINES = 100_000  # pack / unpack / agg
+SERVE_LINES = 20_000
+INGEST_WAIT = 600.0  # seconds any one wait of phase 9 may take
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
 # one operation per lane per clock
@@ -646,7 +674,7 @@ def capture_largest(ops, every=None, kernel="wildcard_match_first", copies=None)
         ops.input_hook = None
 
 
-def ops_phase(np, torch, profile, activity):
+def ops_phase(np, torch, profile, activity, spark_lines):
     """Phase 5: the ops-layer device path on 1M Spark lines, then its
     checks against the host paths -> (launch counts, the largest input of
     each kernel, each kernel's device ms under the profiler)."""
@@ -654,15 +682,11 @@ def ops_phase(np, torch, profile, activity):
     from repro_torch.core.lcs import common_token_count
     from repro_torch.core.match import extract_spans, match_first
     from repro_torch.core.tokenizer import Vocab, tokenize
-    from repro_torch.data.loggen import generate_lines
     from repro_torch.kernels import ops
 
-    t0 = time.perf_counter()
-    contents = [line.split(": ", 1)[-1]
-                for line in generate_lines("Spark", OPS_LINES, seed=OPS_SEED)]
+    contents = [line.split(": ", 1)[-1] for line in spark_lines]
     raw_bytes = sum(len(c.encode("utf-8", "surrogateescape")) for c in contents)
-    log(f"[ops] {len(contents)} Spark contents, {raw_bytes / 1e6:.1f} MB, generated in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[ops] {len(contents)} Spark contents, {raw_bytes / 1e6:.1f} MB")
 
     stages = {}
     vocab = Vocab()
@@ -964,75 +988,55 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
     return counts, largest, device_ms, lzjf_inputs, chunk_inputs, session_codec
 
 
-def tenant_session(cfg, path, lines, budget=None, wal_dir=None, resend_from=None):
-    """Phase 8's writer, composed as the reference's ingest daemon composes
-    it (``repro.ingest.service.TenantStore``): an empty archive at ``path``
-    published first (skipped when ``resend_from`` is given: the archive is
-    there), then an append session that fsyncs each chunk's commit and
-    writes through a ``FaultyOpener`` of ``budget`` bytes. With ``wal_dir``
-    each 8,192-line batch is journaled and synced through a ``WalWriter``
-    before the session is fed it, and each commit garbage-collects the
-    journal. ``resend_from`` is the resume: ``ensure_clean``, then
-    ``replay_wal(start=committed lines)`` fed first, the writer restarted
-    at the journal's end, then ``lines[resend_from:]`` as the client
-    re-sends them. At the first ``OSError`` the handles are dropped as a
-    killed process drops them -> (the error or None, lines replayed, the
-    journal's durable watermark: the lines acked to the client)."""
-    from repro_torch.core import recover, stream, wal
+def store_session(root, lines, cfg, budget=None, resend_from=0):
+    """Phase 8's writer: the port's ``TenantStore`` of tenant ``t`` under
+    ``root`` as the ingest daemon drives it, each 8,192-line batch
+    journaled, synced and then handed to the archive session, which fsyncs
+    each chunk's commit; the archive is written through a ``FaultyOpener``
+    of ``budget`` bytes, the empty archive published first included. A
+    store opened on a wreck heals it and replays its journal, and must
+    resume at ``resend_from``, where the client re-sends from. At the
+    first ``OSError`` the store drops its handles as a killed process
+    drops them -> (the error or None, lines replayed, the journal's
+    durable watermark: the lines acked to the client)."""
     from repro_torch.core.faultinject import FaultyOpener
+    from repro_torch.ingest import TenantStore
 
-    replayed = []
-    if resend_from is None:
-        stream.StreamingCompressor(path, cfg).close()
-        start = 0
-    else:
-        base = recover.ensure_clean(path)["n_lines"]
-        replay = wal.replay_wal(wal_dir, start=base)
-        replayed = [text for _, text in replay.records]
-        start = max(base, replay.end_seq)
-        if start != resend_from:
-            raise AssertionError(f"the journal resumes at {start}, the client at {resend_from}")
-    journal = wal.WalWriter(wal_dir, next_seq=start) if wal_dir else None
-    sc = stream.StreamingCompressor(
-        path, cfg, chunk_lines=STREAM_CHUNK_LINES, append=True, pipeline=False,
-        sync_on_commit=True, on_commit=journal.gc if journal else None,
-        opener=FaultyOpener(budget))
+    os.makedirs(root, exist_ok=True)
+    st = TenantStore(root, "t", cfg, chunk_lines=STREAM_CHUNK_LINES,
+                     archive_opener=FaultyOpener(budget), device=cfg.device)
+    if st.next_seq != resend_from:
+        raise AssertionError(f"the store resumes at {st.next_seq}, the client at {resend_from}")
     err = None
     try:
-        sc.feed(replayed)
-        for s in range(start, len(lines), STREAM_CHUNK_LINES):
-            batch = lines[s:s + STREAM_CHUNK_LINES]
-            if journal:
-                for line in batch:
-                    journal.append(line)
-                journal.sync()
-            sc.feed(batch)
-        sc.close()
-        if journal:
-            journal.close()
+        for s in range(resend_from, len(lines), STREAM_CHUNK_LINES):
+            for i in range(s, min(s + STREAM_CHUNK_LINES, len(lines))):
+                st.submit(i, lines[i])
+            st.ack_sync()
+        st.seal()
     except OSError as e:
         err = e
-        if journal:
-            journal.abandon()
-        try:
-            sc._f.close()
-        except (OSError, ValueError):
-            pass
-    return err, len(replayed), journal.durable_seq if journal else None
+        st.crash()
+    return err, st.replayed, st.wal.durable_seq
 
 
-def durability_phase(torch, profile, activity, lines, fmt, device="cuda") -> dict:
-    """Phase 8: torn LZJS sessions repaired, and a session resumed from its
-    write-ahead journal, each step on ``device`` and on a ``device="cpu"``
-    twin, byte for byte -> the launch counts of the ``device`` runs. The
+def durability_phase(torch, profile, activity, lines, fmt, keep: Path, device="cuda") -> dict:
+    """Phase 8: torn ``TenantStore`` sessions repaired, and a store resumed
+    from its write-ahead journal, on ``device`` -> its launch counts. The
     clean session that gives the cuts runs under ``torch.profiler``: its
     host-to-device copies must equal the wrappers' uploads, one a
-    ``colcodec_transform`` call (phase 6's timed session is not profiled)."""
-    import shutil
-    import tempfile
-
-    from repro_torch.core import recover, stream, wal
+    ``colcodec_transform`` call (phase 6's timed session is not profiled);
+    its bytes must equal a ``device="cpu"`` twin's, and both archives are
+    left in ``keep`` (``main.lzjs``, ``cpu.lzjs``) for phase 9's
+    ``compact``. Each torn session's wreckage must be the clean stream cut
+    at its byte, and its repair must keep every committed chunk's lines.
+    The resume runs on ``device`` and on the CPU from copies of one wreck
+    and its journal, and must give equal archives.
+    (``tests/test_torch_durability.py`` holds ``repair`` and ``fsck``
+    against the reference byte for byte.)"""
+    from repro_torch.core import recover, stream
     from repro_torch.core.codec import LogzipConfig
+    from repro_torch.core.faultinject import FaultyOpener
     from repro_torch.core.stream import LZJSReader
     from repro_torch.kernels import ops
 
@@ -1049,17 +1053,16 @@ def durability_phase(torch, profile, activity, lines, fmt, device="cuda") -> dic
     t_phase = time.perf_counter()
     ops.reset_launch_counts()
     try:
-        # the run on ``device`` and its twin on the CPU
         cfgs = {side: LogzipConfig(format=fmt, device=d)
                 for side, d in (("main", device), ("twin", "cpu"))}
-        # a clean run on ``device`` gives the cuts (its bytes are checked
-        # against the twin's by the footer cut's wreckage, all but 40 bytes)
-        clean = work / "clean.lzjs"
+        clean = work / "clean-main" / "t.lzjs"
         wrapper_copies: dict[str, int] = {}
+        t0 = time.perf_counter()
         with capture_largest(ops, copies=wrapper_copies), \
                 profile(activities=[activity.CUDA]) as prof:
-            tenant_session(cfgs["main"], str(clean), lines)
+            store_session(str(clean.parent), lines, cfgs["main"])
             torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
         counts = ops.launch_counts()
         h2d = sum(c for k, (c, _) in device_us(prof).items() if "HtoD" in k)
         log(f"[durable] clean session under the profiler: colcodec_transform "
@@ -1073,16 +1076,24 @@ def durability_phase(torch, profile, activity, lines, fmt, device="cuda") -> dic
         data = clean.read_bytes()
         if read(str(clean)) != lines:
             raise AssertionError("the clean session does not read back its lines")
+        t0 = time.perf_counter()
+        store_session(str(work / "clean-twin"), lines, cfgs["twin"])
+        twin_s = time.perf_counter() - t0
+        if (work / "clean-twin" / "t.lzjs").read_bytes() != data:
+            raise AssertionError(f"the clean session differs between {device} and cpu")
+        shutil.copyfile(clean, keep / "main.lzjs")
+        shutil.copyfile(work / "clean-twin" / "t.lzjs", keep / "cpu.lzjs")
         rd = LZJSReader(str(clean))
         index, footer_at = [dict(e) for e in rd.index], rd.footer_offset
         rd.close()
-        boot = work / "boot.lzjs"
-        stream.StreamingCompressor(str(boot), cfgs["twin"]).close()
+        boot, probe = work / "boot.lzjs", FaultyOpener()
+        stream.StreamingCompressor(str(boot), cfgs["twin"], opener=probe).close()
         rd = LZJSReader(str(boot))
         written_from = rd.footer_offset  # where the append session's writes begin
         rd.close()
         log(f"[durable] {len(lines)} lines, {len(index)} chunks of {STREAM_CHUNK_LINES}; clean "
-            f"session on {device} {len(data)} bytes, footer at {footer_at}")
+            f"session {len(data)} bytes, footer at {footer_at}: {clean_s:.2f} s on {device} "
+            f"(profiled), {twin_s:.2f} s on cpu, equal bytes")
 
         def commit_end(e):
             return e["sc"][0] if "sc" in e else e["offset"] + e["length"]
@@ -1092,72 +1103,419 @@ def durability_phase(torch, profile, activity, lines, fmt, device="cuda") -> dic
         cuts = {"halfway into chunk 4's record": torn4,
                 "at the end of chunk 6's commit record": commit_end(index[6]),
                 "40 bytes before the end, inside the footer": len(data) - 40}
-        resume, acked = {}, {}
         for n, (label, cut) in enumerate(cuts.items()):
             want = [line for e in index if commit_end(e) <= cut
                     for line in lines[e["line_start"]:e["line_start"] + e["n_lines"]]]
-            got = {}
-            for side, cfg in cfgs.items():
-                path = work / f"torn-{n}-{side}.lzjs"
-                journal = work / f"wal-{side}" if cut == torn4 else None
-                t0 = time.perf_counter()
-                err, _, ack = tenant_session(cfg, str(path), lines, cut - written_from,
-                                             str(journal) if journal else None)
-                secs = time.perf_counter() - t0
-                wreck = path.read_bytes()
-                if err is None or len(wreck) != cut:
-                    raise AssertionError(f"{label}: the session did not fail at byte {cut} "
-                                         f"({err!r}, {len(wreck)} bytes landed)")
-                if journal:  # a copy for the resume, which repairs on its own
-                    acked[side] = ack
-                    resume[side] = (work / f"resume-{side}.lzjs", journal)
-                    resume[side][0].write_bytes(wreck)
-                report = recover.repair(str(path))
-                got[side] = (wreck, report, path.read_bytes(), read(str(path)), secs)
-            if got["main"][:4] != got["twin"][:4]:
-                raise AssertionError(f"{label}: the wreckage, repair report, repaired bytes or "
-                                     f"lines differ between {device} and cpu")
-            if got["main"][3] != want:
-                raise AssertionError(f"{label}: {len(got['main'][3])} lines read back after "
-                                     f"repair, {len(want)} were committed before the cut")
-            log(f"[durable] torn at byte {cut} ({label}): session {got['main'][4]:.2f} s on "
-                f"{device}, {got['twin'][4]:.2f} s on cpu; wreckage, repair report, repaired "
-                f"bytes and the {len(want)} lines read back equal on both; report "
-                f"{json.dumps(got['main'][1])}")
+            path = work / f"torn-{n}" / "t.lzjs"
+            t0 = time.perf_counter()
+            # the empty archive's bytes, then the append session's up to the cut
+            err, _, ack = store_session(str(path.parent), lines, cfgs["main"],
+                                        probe.bytes_written + cut - written_from)
+            secs = time.perf_counter() - t0
+            wreck = path.read_bytes()
+            if err is None or wreck != data[:cut]:
+                raise AssertionError(f"{label}: the session did not stop at byte {cut} of the "
+                                     f"clean stream ({err!r}, {len(wreck)} bytes landed)")
+            if cut == torn4:  # the wreck and its journal, for the resume on both sides
+                acked = ack
+                for side in cfgs:
+                    shutil.copytree(path.parent, work / f"resume-{side}")
+            report = recover.repair(str(path))
+            back = read(str(path))
+            if back != want:
+                raise AssertionError(f"{label}: {len(back)} lines read back after repair, "
+                                     f"{len(want)} were committed before the cut")
+            log(f"[durable] torn at byte {cut} ({label}): session {secs:.2f} s on {device}; "
+                f"the wreckage is the clean stream's first {cut} bytes; repair keeps the "
+                f"{len(want)} committed lines; report {json.dumps(report)}")
 
         got = {}
         for side, cfg in cfgs.items():
-            path, journal = resume[side]
-            at_crash = sorted(p.name for p in journal.iterdir())
+            root = work / f"resume-{side}"
+            at_crash = sorted(p.name for p in (root / "t.lzjs.wal").iterdir())
             t0 = time.perf_counter()
-            err, n_replayed, _ = tenant_session(cfg, str(path), lines, None, str(journal),
-                                                resend_from=acked[side])
+            err, n_replayed, _ = store_session(str(root), lines, cfg, resend_from=acked)
             secs = time.perf_counter() - t0
             if err is not None:
                 raise AssertionError(f"the resumed session failed on {cfg.device}: {err!r}")
-            segs = {Path(p).name: Path(p).read_bytes()
-                    for _, p in wal._segment_paths(str(journal))}
-            got[side] = (path.read_bytes(), read(str(path)), segs, acked[side], at_crash,
-                         n_replayed, secs)
-        blob, back, segs, n_acked, at_crash, n_replayed, secs = got["main"]
-        if back != lines:
+            got[side] = ((root / "t.lzjs").read_bytes(), read(str(root / "t.lzjs")),
+                         (root / "t.lzjs.wal").exists(), at_crash, n_replayed, secs)
+        blob, back, journal_left, at_crash, n_replayed, secs = got["main"]
+        if back != lines or journal_left:
             raise AssertionError(f"the resumed archive reads back {len(back)} lines, not the "
-                                 f"{len(lines)} fed")
-        if got["main"][:4] != got["twin"][:4]:
-            raise AssertionError(f"the resumed archive, the journal's segments or the acked "
-                                 f"lines differ between {device} and cpu")
-        log(f"[durable] resume after the chunk-4 crash: {n_acked} lines acked, journal "
+                                 f"{len(lines)} fed, or its sealed store kept its journal")
+        if got["main"][:3] != got["twin"][:3]:
+            raise AssertionError(f"the resumed archive differs between {device} and cpu")
+        log(f"[durable] resume after the chunk-4 crash: {acked} lines acked, journal "
             f"segments {at_crash} at the crash; ensure_clean, then {n_replayed} lines replayed "
-            f"from the journal and {len(lines) - n_acked} re-sent; {secs:.2f} s on {device}, "
-            f"{got['twin'][6]:.2f} s on cpu; all {len(lines)} lines back in order, the archive "
-            f"({len(blob)} bytes) and the journal's remaining segments {sorted(segs)} equal on "
-            f"both")
+            f"from the journal and {len(lines) - acked} re-sent; {secs:.2f} s on {device}, "
+            f"{got['twin'][5]:.2f} s on cpu; all {len(lines)} lines back in order, the archive "
+            f"({len(blob)} bytes) equal on both, the sealed store's journal gone")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     counts = ops.launch_counts()
     log(f"[durable] launches on {device}: {json.dumps(counts)}; phase 8 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# the port's CLI as a user runs it, in a process of its own; at exit it
+# prints the process's kernel launches on its standard error
+CLI_MAIN = """import atexit, json, runpy, sys
+from repro_torch.kernels import ops
+atexit.register(lambda: print("[launches] " + json.dumps(ops.launch_counts()),
+                              file=sys.stderr, flush=True))
+runpy.run_module("repro_torch.launch.compress", run_name="__main__", alter_sys=True)
+"""
+
+
+def cli(*args: str, timeout: float | None = None, background: bool = False):
+    """``python -m repro_torch.launch.compress ARGS`` -> (exit code,
+    stdout, stderr, the process's launch counts), or the process itself
+    when ``background``."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_MAIN, *args], cwd=str(ROOT), text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    return proc if background else cli_result(proc, timeout)
+
+
+def cli_result(proc, timeout):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    tagged = [ln for ln in err.splitlines() if ln.startswith("[launches] ")]
+    counts = json.loads(tagged[-1][len("[launches] "):]) if tagged else {}
+    return proc.returncode, out, err, counts
+
+
+def corpus_writer(dataset: str, n: int, seed: int, path: Path):
+    """A process that writes loggen's ``dataset`` corpus to ``path``, one
+    line a line (it is killed at exit if still running)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from repro_torch.data.loggen import write_dataset; "
+         "write_dataset(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))",
+         dataset, str(path), str(n), str(seed)],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    atexit.register(proc.kill)
+    return proc
+
+
+def corpus_read(proc, path: Path) -> list[str]:
+    """The lines ``proc`` (a ``corpus_writer``) wrote, once it is done."""
+    if proc.wait(timeout=600) != 0:
+        raise RuntimeError(f"writing {path.name} failed (exit {proc.returncode})")
+    with open(path, encoding="utf-8", newline="") as f:
+        lines = f.read().split("\n")
+    path.unlink()
+    return lines
+
+
+# the CPU side of phase 9's compact twin, in a process of its own:
+# argv[1] compacted into argv[2] -> its seconds
+TWIN_MAIN = """import json, sys, time
+from repro_torch.lifecycle import compact
+t0 = time.perf_counter()
+compact([sys.argv[1]], sys.argv[2], device="cpu")
+print(json.dumps(time.perf_counter() - t0))
+"""
+
+
+def socket_in(directory: Path) -> str:
+    """A unix socket path in ``directory``, or in the temporary directory
+    where that path would pass the ~108-byte limit."""
+    path = directory / "ingest.sock"
+    if len(str(path)) > 100:
+        path = Path(tempfile.mkdtemp(prefix="lzsock-")) / "ingest.sock"
+    return str(path)
+
+
+def ingest_phase(torch, lines, fmt, twins: Path, device="cuda") -> dict:
+    """Phase 9: the ingest daemon, the lifecycle layer and the CLI on
+    ``device``, on phase 3's lines -> the launch counts of the feed.
+
+    The feed: one ``IngestDaemon`` with a ``RetentionManager``, ``INGEST_TENANTS``
+    tenants of ``INGEST_TENANT_LINES`` lines each, one ``IngestClient`` thread a
+    tenant; every line acked, then a drain that seals each session and rolls
+    it (``compact``, lzma, 16,384-line chunks) into the sealed tier. The
+    crash leg: a tenant cut by a forced abort halfway through its acks and
+    resumed by a fresh daemon from the handshake's watermark. The twin:
+    phase 8's clean archive (``twins / "main.lzjs"``) compacted on
+    ``device`` and its CPU twin's (``cpu.lzjs``, the same bytes) on the
+    CPU, equal bytes. The CLI: ``serve --retention``
+    drained by SIGTERM, ``pack`` / ``unpack`` and ``agg`` against
+    ``--device cpu``, each a process of its own."""
+    import signal
+    import threading
+
+    from repro_torch.core.stream import LZJSReader
+    from repro_torch.ingest import IngestClient, IngestDaemon, ProtocolError
+    from repro_torch.kernels import ops
+    from repro_torch.lifecycle import RetentionManager, RetentionPolicy, compact
+
+    def read(path):
+        rd = LZJSReader(str(path))
+        try:
+            return rd.read_all()
+        finally:
+            rd.close()
+
+    def healthy(daemon, what):
+        """Raise on any tenant failure the daemon or its supervisor shows."""
+        stats, status = daemon.stats(), daemon.supervisor.status()
+        failed = {t: s["failed"] for t, s in stats.items() if s["failed"] is not None}
+        tripped = {t: s for t, s in status.items() if s["failures"] or s["open"]}
+        if failed or tripped:
+            raise AssertionError(f"{what}: tenant failures {failed}, breakers {tripped}")
+
+    def used_kernels(counts, what):
+        if not (counts.get("wildcard_match_first", 0) > 0
+                and counts.get("colcodec_transform", 0) > 0):
+            raise AssertionError(f"{what} skipped a kernel: {counts}")
+
+    hello = {"format": fmt}
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="ingest-", dir=ROOT / "build"))
+    t_phase = time.perf_counter()
+    try:
+        # -- the feed: tenants over one socket, each session sealed and compacted
+        root = work / "feed"
+        root.mkdir()
+        tenants = {f"tenant{i}": lines[i * INGEST_TENANT_LINES:(i + 1) * INGEST_TENANT_LINES]
+                   for i in range(INGEST_TENANTS)}
+        retention = RetentionManager(str(root), RetentionPolicy(rollup_after=2))
+        roll_s, rolled = {}, {}
+        real_roll = retention.roll_tenant
+
+        def timed_roll(tenant, **kw):  # the daemon's hook, timed
+            t0 = time.perf_counter()
+            rolled[tenant] = real_roll(tenant, **kw)
+            roll_s[tenant] = time.perf_counter() - t0
+            return rolled[tenant]
+
+        retention.roll_tenant = timed_roll
+        ops.reset_launch_counts()
+        daemon = IngestDaemon(str(root), socket_in(root), device=device,
+                              chunk_lines=STREAM_CHUNK_LINES, retention=retention).start()
+        acked, errors = {}, {}
+
+        def feed(tid, tl):
+            try:
+                with IngestClient(daemon.address, tid, cfg=hello, timeout=INGEST_WAIT) as c:
+                    for line in tl:
+                        c.send(line)
+                    acked[tid] = c.wait_ack(len(tl) - 1, timeout=INGEST_WAIT)
+                    if c.error is not None:
+                        errors[tid] = c.error
+            except (ProtocolError, OSError) as e:
+                errors[tid] = e
+
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=feed, args=item) for item in tenants.items()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(INGEST_WAIT)
+            feed_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            feed_counts = ops.launch_counts()
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"the feed failed: {errors}")
+            for tid, tl in tenants.items():
+                if acked.get(tid) != len(tl):  # the watermark passes the last line sent
+                    raise AssertionError(f"{tid}: acked {acked.get(tid)} of {len(tl)} lines")
+            healthy(daemon, "the feed")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            drained = daemon.shutdown(timeout=INGEST_WAIT)
+            torch.cuda.synchronize()
+            drain_s = time.perf_counter() - t0
+        finally:
+            daemon.shutdown(timeout=INGEST_WAIT)
+        drain_counts = ops.launch_counts()
+        healthy(daemon, "the drain")
+        if not drained:
+            raise AssertionError("a tenant worker did not finish its drain in time")
+        used_kernels(feed_counts, "the daemon's feed")
+        used_kernels(drain_counts, "the drain and its compactions")
+        n_fed = sum(len(tl) for tl in tenants.values())
+        for tid, tl in tenants.items():
+            res = rolled.get(tid) or {}
+            if "sealed" not in res:
+                raise AssertionError(f"{tid}: the retention hook did not seal it: {res}")
+            if read(res["sealed"]) != tl:
+                raise AssertionError(f"{tid}: the sealed archive does not decode to its lines")
+        sizes = {tid: rolled[tid]["report"]["bytes_out"] for tid in tenants}
+        log(f"[ingest] feed: {len(tenants)} tenants x {INGEST_TENANT_LINES} HDFS lines over "
+            f"one unix socket on {device}, {feed_s:.2f} s, {n_fed / feed_s:.0f} lines/s, every "
+            f"line acked; drain (seal, then compact into the sealed tier) {drain_s:.2f} s; "
+            f"seconds per compaction {json.dumps({t: round(v, 2) for t, v in roll_s.items()})}; "
+            f"sealed bytes {json.dumps(sizes)}; each sealed archive decodes to its lines; no "
+            f"tenant failure, no breaker open")
+        log(f"[ingest] launches in the feed: {json.dumps(feed_counts)}; in the drain: "
+            f"{json.dumps(drain_counts)}")
+
+        # -- the CLI, each verb a process of its own: serve and pack start
+        # here and run beside the crash leg and the twin
+        t_cli = time.perf_counter()
+        cdir = work / "cli"
+        sroot = cdir / "serve"
+        sroot.mkdir(parents=True)
+        tl = lines[:INGEST_CLI_LINES]
+        src = cdir / "in.log"
+        src.write_text("\n".join(tl), encoding="utf-8", errors="surrogateescape")
+        ssock = socket_in(sroot)
+        serve = cli("serve", str(sroot), "--socket", ssock, "--chunk-lines",
+                    str(STREAM_CHUNK_LINES), "--retention", "--rollup-after", "2",
+                    "--device", device, background=True)
+        pack = None
+        try:
+            pack = cli("pack", str(src), str(cdir / "a.lzj"), "--format", fmt,
+                       "--device", device, background=True)
+            # -- the crash leg: a forced abort halfway, a fresh daemon, a resend
+            croot = work / "crash"
+            croot.mkdir()
+            csock = socket_in(croot)
+            cl = lines[:INGEST_CRASH_LINES]
+            t0 = time.perf_counter()
+            d1 = IngestDaemon(str(croot), csock, device=device,
+                              chunk_lines=STREAM_CHUNK_LINES).start()
+            c = IngestClient(csock, "crash", cfg=hello, timeout=INGEST_WAIT)
+            sent = []
+
+            def send_all():
+                try:
+                    for line in cl:
+                        c.send(line)
+                        sent.append(1)
+                except (ProtocolError, OSError):
+                    pass  # the abort closed the connection under the sender
+
+            sender = threading.Thread(target=send_all)
+            try:
+                sender.start()
+                deadline = time.monotonic() + INGEST_WAIT
+                while c.acked < len(cl) // 2:
+                    if time.monotonic() > deadline or c.error is not None:
+                        raise AssertionError(f"the crash tenant's acks stalled at {c.acked}")
+                    time.sleep(0.01)
+                first = threading.Thread(target=d1.shutdown, args=(INGEST_WAIT,))
+                first.start()  # the first signal drains ...
+                d1.shutdown(INGEST_WAIT)  # ... the second aborts, crash-equivalent
+                first.join(INGEST_WAIT)
+                sender.join(INGEST_WAIT)
+                at_abort = c.acked
+            finally:
+                d1.shutdown(INGEST_WAIT)
+                c.close()
+            d2 = IngestDaemon(str(croot), csock, device=device,
+                              chunk_lines=STREAM_CHUNK_LINES).start()
+            try:
+                with IngestClient(csock, "crash", cfg=hello, timeout=INGEST_WAIT) as c2:
+                    resume_at = c2.next_seq
+                    if not (c2.resumed and at_abort <= resume_at <= len(cl)):
+                        raise AssertionError(f"the handshake resumes at {resume_at}, "
+                                             f"{at_abort} lines were acked")
+                    for line in cl[resume_at:]:
+                        c2.send(line)
+                    c2.wait_ack(len(cl) - 1, timeout=INGEST_WAIT)
+                healthy(d2, "the resumed daemon")
+            finally:
+                if not d2.shutdown(INGEST_WAIT):
+                    raise AssertionError("the resumed daemon did not drain in time")
+            if read(croot / "crash.lzjs") != cl:
+                raise AssertionError("the resumed tenant's archive does not hold every line once")
+            log(f"[ingest] crash leg: {len(cl)} lines, {len(sent)} sent when both signals came at "
+                f"{at_abort} acked; a fresh daemon's handshake resumed at {resume_at}, "
+                f"{len(cl) - resume_at} lines re-sent; the archive holds every line once, in "
+                f"order ({time.perf_counter() - t0:.2f} s)")
+
+            # -- the twin: phase 8's clean archive compacted on the card and, at
+            # the same time in a process of its own, its CPU twin's on the CPU
+            twin_cpu = subprocess.Popen(
+                [sys.executable, "-c", TWIN_MAIN, str(twins / "cpu.lzjs"),
+                 str(twins / "cpu-compact.lzjs")],
+                cwd=str(ROOT), text=True,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            try:
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                compact([str(twins / "main.lzjs")], str(twins / "main-compact.lzjs"),
+                        device=device)
+                main_s = time.perf_counter() - t0
+                compact_counts = ops.launch_counts()
+                out, err = twin_cpu.communicate(timeout=INGEST_WAIT)
+            finally:
+                if twin_cpu.poll() is None:
+                    twin_cpu.kill()
+                    twin_cpu.communicate()
+            if twin_cpu.returncode != 0:
+                raise AssertionError(f"the CPU twin failed: {err[-2000:]}")
+            cpu_s = json.loads(out.splitlines()[-1])
+            used_kernels(compact_counts, "the twin's compact")
+            blob = (twins / "main-compact.lzjs").read_bytes()
+            if blob != (twins / "cpu-compact.lzjs").read_bytes():
+                raise AssertionError(f"compact's archive differs between {device} and cpu")
+            if read(twins / "main-compact.lzjs") != lines[:DURABLE_LINES]:
+                raise AssertionError("the compacted twin does not decode to its lines")
+            log(f"[ingest] twin: phase 8's clean archive ({DURABLE_LINES} lines) compacted in "
+                f"{main_s:.2f} s on {device}, {cpu_s:.2f} s on cpu, {len(blob)} equal bytes; "
+                f"launches {json.dumps(compact_counts)}")
+
+            rc, out, err, packed = cli_result(pack, INGEST_WAIT)
+            if rc != 0:
+                raise AssertionError(f"pack exited {rc}: {err[-2000:]}")
+            used_kernels(packed, "pack")
+            log(f"[ingest] cli pack --device {device}: {out.strip()}")
+            after = {"unpack": cli("unpack", str(cdir / "a.lzj"), str(cdir / "back.log"),
+                                   background=True)}
+            after.update({d: cli("agg", str(cdir / "a.lzj"), "--by-template", "--device", d,
+                                 background=True) for d in (device, "cpu")})
+            after = {k: cli_result(p, INGEST_WAIT) for k, p in after.items()}
+            if after["unpack"][0] != 0 or (cdir / "back.log").read_bytes() != src.read_bytes():
+                raise AssertionError(f"unpack exited {after['unpack'][0]} or its output "
+                                     f"differs from the input: {after['unpack'][2][-2000:]}")
+            agg = after[device]
+            if agg[0] != 0 or agg[1] != after["cpu"][1] or not agg[3].get("distinct_counts"):
+                raise AssertionError(f"agg --device {device} differs from --device cpu or "
+                                     f"launched no distinct_counts: {agg[2][-2000:]}")
+            log(f"[ingest] cli unpack: equal bytes; agg --by-template: "
+                f"{len(agg[1].splitlines())} rows, equal to --device cpu's; launches "
+                f"{json.dumps(agg[3])}")
+            deadline = time.monotonic() + INGEST_WAIT
+            while not Path(ssock).exists():
+                if serve.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("serve never bound its socket")
+                time.sleep(0.05)
+            sl = lines[:SERVE_LINES]
+            with IngestClient(ssock, "t", cfg=hello, timeout=INGEST_WAIT) as c3:
+                for line in sl:
+                    c3.send(line)
+                c3.wait_ack(len(sl) - 1, timeout=INGEST_WAIT)
+        finally:
+            if pack is not None and pack.poll() is None:
+                pack.kill()
+                pack.communicate()
+            if serve.poll() is None:
+                serve.send_signal(signal.SIGTERM)  # the first signal drains
+            rc, out, err, served = cli_result(serve, INGEST_WAIT)
+        if rc != 0 or not out.rstrip().endswith("drained"):
+            raise AssertionError(f"serve exited {rc} after SIGTERM: {out[-500:]} {err[-2000:]}")
+        used_kernels(served, "serve")
+        if read(sroot / "sealed" / "t.00000.lzjs") != sl:
+            raise AssertionError("serve's sealed archive does not decode to its lines")
+        log(f"[ingest] cli serve --retention --device {device}: {len(sl)} lines acked, SIGTERM "
+            f"-> exit 0, 'drained', the sealed archive decodes to the lines; launches "
+            f"{json.dumps(served)}; from serve's start {time.perf_counter() - t_cli:.2f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[ingest] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return feed_counts
 
 
 def main() -> int:
@@ -1192,6 +1550,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # the two corpora are written by processes of their own beside work that
+    # times nothing: phase 3's during the build and phase 2, phase 5's during
+    # phase 3's device="cpu" compress
+    (ROOT / "build").mkdir(exist_ok=True)
+    corpora = Path(tempfile.mkdtemp(prefix="corpus-", dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, corpora, True)
+    hdfs_writer = corpus_writer("HDFS", N_LINES, SEED, corpora / "hdfs.log")
 
     # -- 1: build
     t0 = time.perf_counter()
@@ -1311,10 +1677,10 @@ def main() -> int:
 
     # -- 3: the main path at real size
     t0 = time.perf_counter()
-    lines = list(generate_lines("HDFS", N_LINES, seed=SEED))
+    lines = corpus_read(hdfs_writer, corpora / "hdfs.log")
     raw_bytes = sum(len(l.encode("utf-8", "surrogateescape")) + 1 for l in lines)
-    log(f"[main] {len(lines)} HDFS lines, {raw_bytes / 1e6:.1f} MB, generated in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[main] {len(lines)} HDFS lines, {raw_bytes / 1e6:.1f} MB, generated beside phases "
+        f"1-2, waited for and read in {time.perf_counter() - t0:.1f} s")
     fmt = DATASETS["HDFS"]["format"]
     cfg = LogzipConfig(format=fmt, device="cuda")
     stages: dict = {}
@@ -1376,6 +1742,7 @@ def main() -> int:
             or copies["HtoD"][0] != sum(wrapper_copies.values()):
         raise AssertionError("colcodec_transform made other than one upload a call, or the "
                              "compress copied to the card outside the kernel wrappers")
+    spark_writer = corpus_writer("Spark", OPS_LINES, OPS_SEED, corpora / "spark.log")
     t0 = time.perf_counter()
     cpu_blob = compress(lines, LogzipConfig(format=fmt, device="cpu"))
     log(f"[main] device='cpu' archive in {time.perf_counter() - t0:.2f} s")
@@ -1399,7 +1766,12 @@ def main() -> int:
         log(f"[golden] hdfs_400.{ext}: container identical")
 
     # -- 5: the ops-layer device path at real size
-    ops_counts, ops_inputs, ops_device_ms = ops_phase(np, torch, profile, ProfilerActivity)
+    t0 = time.perf_counter()
+    spark = corpus_read(spark_writer, corpora / "spark.log")
+    log(f"[ops] {len(spark)} Spark lines, generated beside phase 3's device='cpu' compress, "
+        f"waited for and read in {time.perf_counter() - t0:.1f} s")
+    ops_counts, ops_inputs, ops_device_ms = ops_phase(np, torch, profile, ProfilerActivity,
+                                                      spark)
     inputs = dict(largest)
     # the (N, K) kernel no longer runs on any path: its input is the
     # largest single bucket of phase 3's first-hit calls, as it was given
@@ -1623,9 +1995,18 @@ def main() -> int:
         + "; equal assignments")
 
     # -- 8: durability: torn sessions repaired, a session resumed from its journal
-    d_counts = durability_phase(torch, profile, ProfilerActivity, lines, fmt)
-    if not (d_counts["wildcard_match_first"] > 0 and d_counts["colcodec_transform"] > 0):
-        raise AssertionError(f"the durability phase skipped a kernel: {d_counts}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    twins = Path(tempfile.mkdtemp(prefix="clean-", dir=ROOT / "build"))
+    try:
+        d_counts = durability_phase(torch, profile, ProfilerActivity, lines, fmt, twins)
+        if not (d_counts["wildcard_match_first"] > 0 and d_counts["colcodec_transform"] > 0):
+            raise AssertionError(f"the durability phase skipped a kernel: {d_counts}")
+
+        # -- 9: the ingest daemon, retention and the CLI
+        i_counts = ingest_phase(torch, lines, fmt, twins)
+    finally:
+        shutil.rmtree(twins, ignore_errors=True)
+    log(f"[ingest] launches per kernel in the feed: {json.dumps(i_counts)}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

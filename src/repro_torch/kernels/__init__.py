@@ -10,7 +10,8 @@
 - distinct_counts:     weighted histogram of an inverse index (query scans)
 
 Each module holds the kernel's wrapper, its plain torch version (run for
-CPU tensors) and its launch count; ``ops`` holds the numpy in/out wrappers
+CPU tensors) and its launch count (a ``counters.LaunchCount``, exact
+across host threads); ``ops`` holds the numpy in/out wrappers
 the pipeline and the kernel benchmark call, and ``launch_counts``.
 Nothing is built at import.
 """

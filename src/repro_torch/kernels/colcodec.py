@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from . import build
+from .counters import LaunchCount
 
 # mode ids — must equal the repro_torch.core.coltypes type ids
 MONOTONE_INT = 1
@@ -29,17 +30,16 @@ TIMESTAMP = 2
 NUMERIC = 3
 
 _MASK32 = 0xFFFFFFFF
-_LAUNCHES = 0
+_LAUNCHES = LaunchCount()
 
 
 def launches() -> int:
     """Kernel launches since the last ``reset_launches``."""
-    return _LAUNCHES
+    return _LAUNCHES.value()
 
 
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def colcodec_transform_plain(vals: torch.Tensor, lens: torch.Tensor, mode: torch.Tensor,
@@ -104,6 +104,5 @@ def colcodec_transform(vals: torch.Tensor, lens: torch.Tensor, mode: torch.Tenso
             out.data_ptr(), r, width, stream)
     if rc:
         raise RuntimeError(f"colcodec_transform kernel launch failed: CUDA error {rc}")
-    global _LAUNCHES
-    _LAUNCHES += 1
+    _LAUNCHES.add()
     return out

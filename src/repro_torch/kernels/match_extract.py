@@ -32,19 +32,19 @@ import torch
 
 from ..core.tokenizer import STAR_ID
 from . import build
+from .counters import LaunchCount
 from .wildcard_match import MAX_T  # a column of T+1 bits in at most 8 words, as there
 
-_LAUNCHES = 0
+_LAUNCHES = LaunchCount()
 
 
 def launches() -> int:
     """Kernel launches since the last ``reset_launches``."""
-    return _LAUNCHES
+    return _LAUNCHES.value()
 
 
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def _one_template(logs, lc, row: list[int], tl: int, n_slots: int):
@@ -162,6 +162,5 @@ def match_extract(logs: torch.Tensor, lens: torch.Tensor, templates: torch.Tenso
             assign.data_ptr(), spans.data_ptr(), n, t, k, tt, n_slots, stream)
     if rc:
         raise RuntimeError(f"match_extract kernel launch failed: CUDA error {rc}")
-    global _LAUNCHES
-    _LAUNCHES += 1
+    _LAUNCHES.add()
     return assign, spans

@@ -22,18 +22,18 @@ import ctypes
 import torch
 
 from . import build
+from .counters import LaunchCount
 
-_LAUNCHES = 0
+_LAUNCHES = LaunchCount()
 
 
 def launches() -> int:
     """Kernel launches since the last ``reset_launches``."""
-    return _LAUNCHES
+    return _LAUNCHES.value()
 
 
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def distinct_counts_plain(inv: torch.Tensor, weights: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -95,6 +95,5 @@ def distinct_counts(inv: torch.Tensor, weights: torch.Tensor, n_bins: int) -> to
                                            inv.numel(), n_bins, stream)
     if rc:
         raise RuntimeError(f"distinct_counts kernel launch failed: CUDA error {rc}")
-    global _LAUNCHES
-    _LAUNCHES += 1
+    _LAUNCHES.add()
     return out

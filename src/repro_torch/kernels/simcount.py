@@ -22,22 +22,22 @@ import torch
 
 from ..core.tokenizer import PAD_ID, STAR_ID
 from . import build
+from .counters import LaunchCount
 
 MAX_TT = 1024  # the kernel's token table holds a tile of 4 such templates
 # rows of lines per step of the plain version, so that its (rows, K, T)
 # boolean tiles stay near this many elements
 _PLAIN_TILE = 1 << 24
-_LAUNCHES = 0
+_LAUNCHES = LaunchCount()
 
 
 def launches() -> int:
     """Kernel launches since the last ``reset_launches``."""
-    return _LAUNCHES
+    return _LAUNCHES.value()
 
 
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def _valid(x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +110,5 @@ def simcount(logs: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
                                     n, t, k, tt, stream)
     if rc:
         raise RuntimeError(f"simcount kernel launch failed: CUDA error {rc}")
-    global _LAUNCHES
-    _LAUNCHES += 1
+    _LAUNCHES.add()
     return out

@@ -31,23 +31,23 @@ import numpy as np
 import torch
 
 from . import build
+from .counters import LaunchCount
 
 # independent odd multipliers for the two uint32 hash lanes
 P1 = 0x01000193
 P2 = 0x00085EBD
 
 _MASK32 = 0xFFFFFFFF
-_LAUNCHES = 0
+_LAUNCHES = LaunchCount()
 
 
 def launches() -> int:
     """Kernel launches since the last ``reset_launches``."""
-    return _LAUNCHES
+    return _LAUNCHES.value()
 
 
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def hash_powers(b: int) -> tuple:
@@ -152,6 +152,5 @@ def tokenize_hash(blocks: torch.Tensor, lens: torch.Tensor, pw1: torch.Tensor,
             *(o.data_ptr() for o in outs), n, width, *words, stream)
     if rc:
         raise RuntimeError(f"tokenize_hash kernel launch failed: CUDA error {rc}")
-    global _LAUNCHES
-    _LAUNCHES += 1
+    _LAUNCHES.add()
     return outs

@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from . import build
+from .counters import LaunchCount
 
 PAD_ID = 0
 STAR_ID = 1
@@ -39,28 +40,26 @@ MAX_T = 255  # the kernel holds a column of T+1 bits in at most 8 words
 # rows of lines per step of the plain version, so that its (rows, K, T+1)
 # boolean tiles stay near this many elements
 _PLAIN_TILE = 1 << 24
-_LAUNCHES = 0
-_FIRST_LAUNCHES = 0
+_LAUNCHES = LaunchCount()
+_FIRST_LAUNCHES = LaunchCount()
 
 
 def launches() -> int:
     """Launches of the (N, K) kernel since the last ``reset_launches``."""
-    return _LAUNCHES
+    return _LAUNCHES.value()
 
 
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def first_launches() -> int:
     """Launches of the first-hit kernel since the last ``reset_first_launches``."""
-    return _FIRST_LAUNCHES
+    return _FIRST_LAUNCHES.value()
 
 
 def reset_first_launches() -> None:
-    global _FIRST_LAUNCHES
-    _FIRST_LAUNCHES = 0
+    _FIRST_LAUNCHES.reset()
 
 
 def _plain_rows(logs, lens, templates, t_lens) -> torch.Tensor:
@@ -204,8 +203,7 @@ def wildcard_match_first(logs: torch.Tensor, lens: torch.Tensor, templates: torc
             n, t, k, tt, stream)
     if rc:
         raise RuntimeError(f"wildcard_match_first kernel launch failed: CUDA error {rc}")
-    global _FIRST_LAUNCHES
-    _FIRST_LAUNCHES += 1
+    _FIRST_LAUNCHES.add()
     return out
 
 
@@ -231,6 +229,5 @@ def wildcard_match(logs: torch.Tensor, lens: torch.Tensor, templates: torch.Tens
             out.data_ptr(), n, t, k, tt, stream)
     if rc:
         raise RuntimeError(f"wildcard_match kernel launch failed: CUDA error {rc}")
-    global _LAUNCHES
-    _LAUNCHES += 1
+    _LAUNCHES.add()
     return out

@@ -12,6 +12,8 @@ elsewhere.
 """
 
 import ast
+import sys
+import threading
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -25,7 +27,7 @@ from repro.kernels import ref as rref
 from repro.kernels.colcodec import colcodec_transform as pallas_colcodec
 from repro.kernels.wildcard_match import wildcard_match as pallas_wildcard_match
 from repro_torch.core.match import match_first
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, counters, ops
 from repro_torch.kernels import colcodec as cc
 from repro_torch.kernels import ref
 from repro_torch.kernels import wildcard_match as wm
@@ -337,3 +339,97 @@ def test_cuda_kernels_equal_plain_versions():
             case = [_t(a).cuda() for a in _col_case(rng, r, c, wide)]
             assert torch.equal(cc.colcodec_transform(*case).to(torch.int64),
                                cc.colcodec_transform_plain(*case).to(torch.int64))
+
+
+def _race(n_threads, fn):
+    """Run ``fn`` on ``n_threads`` threads released at once, with the
+    interpreter switching threads as often as it can."""
+    start = threading.Barrier(n_threads)
+
+    def work():
+        start.wait()
+        fn()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_launch_count_is_exact_across_threads():
+    """The ingest daemon's tenant threads launch kernels at once: the count
+    they share loses no launch."""
+    count = counters.LaunchCount()
+    n_threads, per_thread = 8, 20_000
+
+    def add():
+        for _ in range(per_thread):
+            count.add()
+
+    _race(n_threads, add)
+    assert count.value() == n_threads * per_thread
+    count.reset()
+    assert count.value() == 0
+
+
+def test_launch_count_updates_take_the_lock(monkeypatch):
+    """Under CPython's GIL an unlocked ``+= 1`` seldom loses a count, so the
+    race above cannot show a missing lock; each update must take it."""
+    taken = []
+
+    class Spy:
+        def __enter__(self):
+            taken.append(True)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(counters, "_LOCK", Spy())
+    count = counters.LaunchCount()
+    count.add()
+    count.reset()
+    assert taken == [True, True]
+
+
+@pytest.mark.parametrize("name", ["colcodec", "match_extract", "scan", "simcount", "tokenize",
+                                  "wildcard_match"])
+def test_every_wrapper_counts_through_a_launch_count(name):
+    mod = __import__(f"repro_torch.kernels.{name}", fromlist=["_LAUNCHES"])
+    assert isinstance(mod._LAUNCHES, counters.LaunchCount)
+    if name == "wildcard_match":
+        assert isinstance(mod._FIRST_LAUNCHES, counters.LaunchCount)
+    tree = ast.parse(Path(mod.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Global)], name
+
+
+@pytest.mark.cuda
+def test_delta_zigzag_launches_counted_exactly_across_threads():
+    """Threads calling ``ops.delta_zigzag`` at once on the card: one count a
+    call, and each output equals the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    rng = np.random.default_rng(5)
+    vals = rng.integers(-(1 << 20), 1 << 20, (3, 4097), dtype=np.int64).astype(np.int32)
+    lens = np.array([4097, 100, 0], np.int32)
+    mode = np.array([1, 2, 3], np.int32)
+    want = ops.delta_zigzag(vals, lens, mode, device="cpu")
+    n_threads, per_thread = 8, 50
+    bad = []
+
+    def call():
+        for _ in range(per_thread):
+            if not np.array_equal(ops.delta_zigzag(vals, lens, mode, device="cuda"), want):
+                bad.append(1)
+
+    ops.delta_zigzag(vals, lens, mode, device="cuda")  # build before the race
+    ops.reset_launch_counts()
+    _race(n_threads, call)
+    assert ops.launch_counts()["colcodec_transform"] == n_threads * per_thread
+    assert not bad

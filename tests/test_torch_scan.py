@@ -11,6 +11,11 @@ kernel runs only on a card: its test is marked ``cuda`` and skips
 elsewhere.
 """
 
+import os
+import subprocess
+import sys
+import tempfile
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,6 +83,39 @@ LAUNCH_CASES = [(8192, 1, False), (8192, 2, False), (8192, 3999, False),
                 (8192, 5, True), (1_000_000, 5, True)]
 
 
+# the JAX oracle and Pallas's interpret mode each hold an (n, n_bins)
+# compare: above this many elements both run in a process of their own,
+# so that the pytest worker's peak memory (which tests/test_soak.py reads
+# as the process's high-water mark) stays as it was
+JAX_CHILD_ELEMENTS = 1 << 28
+_JAX_MAIN = """import sys
+import jax.numpy as jnp
+import numpy as np
+from repro.kernels import ref
+from repro.kernels.scan import distinct_counts
+d, n_bins = sys.argv[1], int(sys.argv[2])
+inv, w = jnp.asarray(np.load(d + "/inv.npy")), jnp.asarray(np.load(d + "/w.npy"))
+np.save(d + "/oracle.npy", np.asarray(ref.distinct_counts_ref(inv, w, n_bins)))
+np.save(d + "/pallas.npy", np.asarray(distinct_counts(inv, w, n_bins=n_bins, interpret=True)[0]))
+"""
+
+
+def _jax_sides(inv, w, n_bins):
+    """(``ref.distinct_counts_ref``, ``pallas_distinct_counts(...,
+    interpret=True)[0]``) of the JAX package, as numpy."""
+    if inv.size * n_bins <= JAX_CHILD_ELEMENTS:
+        return (np.asarray(rref.distinct_counts_ref(jnp.asarray(inv), jnp.asarray(w), n_bins)),
+                np.asarray(pallas_distinct_counts(
+                    jnp.asarray(inv), jnp.asarray(w), n_bins=n_bins, interpret=True))[0])
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    with tempfile.TemporaryDirectory() as d:
+        np.save(os.path.join(d, "inv.npy"), inv)
+        np.save(os.path.join(d, "w.npy"), w)
+        subprocess.run([sys.executable, "-c", _JAX_MAIN, d, str(n_bins)], check=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu"))
+        return np.load(os.path.join(d, "oracle.npy")), np.load(os.path.join(d, "pallas.npy"))
+
+
 def _launch_case(n, n_bins, one_bin):
     rng = np.random.default_rng(n + n_bins)
     if one_bin:
@@ -93,10 +131,9 @@ def test_distinct_counts_launch_cases_equal_pallas(n, n_bins, one_bin):
     got = got.numpy()
     np.testing.assert_array_equal(got, _wrapped(inv, w, n_bins))
     np.testing.assert_array_equal(got, ref.distinct_counts_ref(_t(inv), _t(w), n_bins).numpy())
-    np.testing.assert_array_equal(got, np.asarray(rref.distinct_counts_ref(
-        jnp.asarray(inv), jnp.asarray(w), n_bins)))
-    np.testing.assert_array_equal(got, np.asarray(pallas_distinct_counts(
-        jnp.asarray(inv), jnp.asarray(w), n_bins=n_bins, interpret=True))[0])
+    oracle, pallas = _jax_sides(inv, w, n_bins)
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, pallas)
     if one_bin:  # n * (2**31 - 3), wrapped to int32
         want = n * (int(I32.max) - 2) % 2**32
         assert int(got[0]) == want - (want >= 2**31) * 2**32 and not got[1:].any()
