@@ -95,8 +95,21 @@ Phases, each of which raises on failure:
    (a process of its own), equal bytes; the CLI as processes with
    ``--device cuda``: ``serve --retention`` drained by SIGTERM, ``pack``
    / ``unpack`` byte-equal, ``agg`` equal to ``--device cpu``'s, each
-   process printing its launch counts. Then print the ``kernels`` line
-   and the result line.
+   process printing its launch counts;
+10. the LM data pipeline on the card: 100,000 Spark lines (loggen, seed
+   0, ``examples/train_lm_on_logs.py``'s level 3 config) written by
+   ``write_logzip_shards`` and ``write_logzip_stream`` on the card and on
+   the CPU, every shard file, container and manifest equal byte for byte,
+   ``wildcard_match_first`` and ``colcodec_transform`` launched in each
+   card write; ``TokenBatcher`` batches on the card equal to the CPU's,
+   also after a ``state_dict`` resume, in bytes and events mode;
+   ``PrefetchLoader`` serving each shard once;
+11. serving ``qwen3-1.7b`` at full width: the KV cache against
+   ``forward`` in fp32 (TF32 off), a 2-layer full-width twin on the card
+   against the CPU, a timed bf16 serve of 8 requests (prefill and decode
+   ms, tokens/s, peak memory, the decode bound), and ``python -m
+   repro_torch.launch.serve --device cuda`` as a process. Then print the
+   ``kernels`` line and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -141,6 +154,16 @@ INGEST_CRASH_LINES = 50_000  # the crash leg's tenant
 INGEST_CLI_LINES = 100_000  # pack / unpack / agg
 SERVE_LINES = 20_000
 INGEST_WAIT = 600.0  # seconds any one wait of phase 9 may take
+# phase 10: the data pipeline, as examples/train_lm_on_logs.py:46-50 sets it
+# up (level 3, the Spark format, ISEConfig(min_sample=300)) at 100,000 lines
+PIPE_LINES = 100_000
+PIPE_SHARD_LINES = 20_000
+PIPE_BATCHES = 20  # (8, 256) batches a batcher, resumed at batch 10
+# phase 11: serving qwen3-1.7b at full width
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_SEED = 0
+CACHE_REL = 1e-4  # (a): fp32 prefill + decode against forward, of max |logit|
+TWIN_REL = 1e-4   # (b): fp32 on the card against the CPU, of max |logit|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
 # one operation per lane per clock
@@ -1518,6 +1541,315 @@ def ingest_phase(torch, lines, fmt, twins: Path, device="cuda") -> dict:
     return feed_counts
 
 
+def pipeline_phase(torch) -> dict:
+    """Phase 10: ``data.pipeline`` on the card -> the launch counts of the
+    two writes on "cuda".
+
+    ``PIPE_LINES`` Spark lines (loggen, seed 0) through
+    ``write_logzip_shards`` and ``write_logzip_stream``, once on "cuda" and
+    once on "cpu": every shard file, the LZJS container and both manifests
+    equal byte for byte; ``wildcard_match_first`` and
+    ``colcodec_transform`` launched in each card write. A ``TokenBatcher``
+    on the card, bytes mode, against its ``device="cpu"`` twin over
+    ``PIPE_BATCHES`` (8, 256) batches, and resumed from its ``state_dict``
+    at batch 10; events mode the same. ``PrefetchLoader`` serves every
+    shard of both layouts once."""
+    from repro_torch.core.codec import LogzipConfig
+    from repro_torch.core.ise import ISEConfig
+    from repro_torch.data import pipeline
+    from repro_torch.data.loggen import DATASETS, generate_lines
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    lines = list(generate_lines("Spark", PIPE_LINES, seed=0))
+    root = Path(tempfile.mkdtemp(prefix="pipeline-", dir=ROOT / "build"))
+    try:
+        written, counts = {}, {}
+        for device in ("cuda", "cpu"):
+            cfg = LogzipConfig(level=3, format=DATASETS["Spark"]["format"],
+                               ise=ISEConfig(min_sample=300), device=device)
+            for kind, writer in (("files", pipeline.write_logzip_shards),
+                                 ("stream", pipeline.write_logzip_stream)):
+                out = root / device / kind
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                manifest = writer(iter(lines), str(out), shard_lines=PIPE_SHARD_LINES, cfg=cfg)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                if device == "cuda":
+                    counts[kind] = ops.launch_counts()
+                written[device, kind] = (out, manifest)
+                log(f"[pipeline] {writer.__name__} on {device}: {len(lines)} lines, "
+                    f"{len(manifest['shards'])} shards, {manifest['compressed_bytes']} bytes "
+                    f"(ratio {manifest['raw_bytes'] / manifest['compressed_bytes']:.3f}) in "
+                    f"{dt:.3f} s, {len(lines) / dt:.0f} lines/s"
+                    + (f"; launches {json.dumps(counts[kind])}" if device == "cuda" else ""))
+        for kind in ("files", "stream"):
+            (gd, gman), (cd, cman) = written["cuda", kind], written["cpu", kind]
+            if gman != cman:
+                raise AssertionError(f"the {kind} manifests differ between cuda and cpu")
+            names = sorted(os.listdir(gd))
+            if names != sorted(os.listdir(cd)):
+                raise AssertionError(f"the {kind} writes made different files: {names}")
+            for name in names:
+                if (gd / name).read_bytes() != (cd / name).read_bytes():
+                    raise AssertionError(f"{kind}/{name} differs between cuda and cpu")
+            need = [k for k in ("wildcard_match_first", "colcodec_transform")
+                    if counts[kind][k] == 0]
+            if need:
+                raise AssertionError(f"the {kind} write on the card launched no {need}")
+            log(f"[pipeline] {kind}: {len(names)} files equal byte for byte on cuda and cpu, "
+                f"manifests equal")
+
+        for kind in ("files", "stream"):
+            for mode in ("bytes", "events"):
+                card = pipeline.TokenBatcher(str(written["cuda", kind][0]), mode=mode, seed=0,
+                                             device="cuda")
+                host = pipeline.TokenBatcher(str(written["cpu", kind][0]), mode=mode, seed=0,
+                                             device="cpu")
+                got, state = [], None
+                for i in range(PIPE_BATCHES):
+                    if i == PIPE_BATCHES // 2:
+                        state = card.state_dict()
+                        if state != host.state_dict():
+                            raise AssertionError(f"{kind}/{mode}: batcher states differ")
+                    g, h = card.next_batch(8, 256), host.next_batch(8, 256)
+                    for key in ("tokens", "labels"):
+                        t = g[key]
+                        if not (t.is_cuda and t.dtype == torch.int32 and t.shape == (8, 256)):
+                            raise AssertionError(f"{kind}/{mode}: a {key} batch is {t.dtype} "
+                                                 f"{tuple(t.shape)} on {t.device}")
+                        if not torch.equal(t.cpu(), h[key]):
+                            raise AssertionError(f"{kind}/{mode}: batch {i} {key} differs")
+                    got.append(g)
+                again = pipeline.TokenBatcher(str(written["cuda", kind][0]), mode=mode, seed=0,
+                                              device="cuda")
+                again.load_state_dict(state)
+                for i in range(PIPE_BATCHES // 2, PIPE_BATCHES):
+                    g = again.next_batch(8, 256)
+                    if not (torch.equal(g["tokens"], got[i]["tokens"])
+                            and torch.equal(g["labels"], got[i]["labels"])):
+                        raise AssertionError(f"{kind}/{mode}: the resumed batch {i} differs")
+                log(f"[pipeline] TokenBatcher {kind}/{mode}: {PIPE_BATCHES} (8, 256) int32 "
+                    f"batches on the card equal to device='cpu', and from a resume at batch "
+                    f"{PIPE_BATCHES // 2}")
+
+        paths = [str(written["cuda", kind][0] / s["file"]) for kind in ("files", "stream")
+                 for s in written["cuda", kind][1]["shards"]]
+        n_lines = {str(written["cuda", kind][0] / s["file"]): s["n_lines"]
+                   for kind in ("files", "stream") for s in written["cuda", kind][1]["shards"]}
+        loader = pipeline.PrefetchLoader(paths, pipeline.read_shard, depth=2, workers=2)
+        served = []
+        for path, data in loader:
+            served.append(path)
+            if len(data) != n_lines[path]:
+                raise AssertionError(f"PrefetchLoader served {len(data)} lines of {path}")
+        loader.close()
+        if sorted(served) != sorted(paths):
+            raise AssertionError(f"PrefetchLoader served {served}, not each of {paths} once")
+        log(f"[pipeline] PrefetchLoader served each of {len(paths)} shards once "
+            f"({json.dumps(loader.stats)})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[pipeline] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def serving_phase(np, torch, profile, activity, card: str) -> dict:
+    """Phase 11: ``SERVE_ARCH`` at full width on the card -> the serve's
+    figures.
+
+    (a) fp32 weights: prefill half of a (2, 64) prompt and decode the
+    rest; the logits equal ``forward``'s at the same positions within
+    ``CACHE_REL`` of the largest |logit|, TF32 off. (b) the full width at
+    2 layers in fp32, carried to the CPU through ``weights``: prefill and
+    8 greedy decode steps on both, logits within ``TWIN_REL``, tokens
+    equal. (c) bf16: 8 requests as 2 batches of 4, prompt 512, 32 new
+    tokens, greedy, through ``launch.serve.serve_requests``, after one
+    untimed batch; then 8 decode steps of a batch under ``torch.profiler``
+    for the device's busy time and idle share. (d) ``python -m repro_torch.launch.serve --device cuda
+    --requests 8`` as a process."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.models.weights import from_reference, to_reference
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             cfg.qk_norm, cfg.padded_vocab, cfg.family, cfg.dtype)
+    if shape != (28, 2048, 16, 8, 128, True, 152_064, "dense", "bfloat16"):
+        raise AssertionError(f"{SERVE_ARCH} is not the full-width config: {shape}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 parity would not hold")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(SERVE_SEED)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SERVE_SEED)
+
+    # (a) the cache against the forward, 28 layers in fp32
+    t0 = time.perf_counter()
+    model = init_params(cfg32, gen(), device=dev)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 64)).astype(np.int32)).to(dev)
+    full, _ = forward(model, {"tokens": toks})
+    logits, cache = prefill(model, {"tokens": toks[:, :32]}, 64)
+    seq = [logits]
+    for t in range(32, 64):
+        logits, cache = decode_step(model, cache, toks[:, t:t + 1])
+        seq.append(logits)
+    got, want = torch.stack(seq[:-1], dim=1), full[:, 31:63]
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not (torch.isfinite(got).all() and err <= CACHE_REL * scale):
+        raise AssertionError(f"(a) prefill + decode differ from forward by {err} "
+                             f"(max |logit| {scale}, tolerance {CACHE_REL} of it)")
+    torch.cuda.synchronize()
+    log(f"[serve] (a) {SERVE_ARCH} full width, fp32, TF32 off: prefill 32 + 32 decode steps "
+        f"against forward over (2, 64): max |diff| {err:.3e}, {err / scale:.3e} of max |logit| "
+        f"{scale:.3f} (tolerance {CACHE_REL}); {time.perf_counter() - t0:.1f} s on {card}")
+    prompt32 = toks[:, :32]
+    del model, full, cache, seq, got, want
+
+    # (b) the CPU twin: 2 layers at full width, fp32, the same weights
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg32, n_layers=2)
+    on_card = init_params(cfg2, gen(), device=dev)
+    on_host = from_reference(cfg2, to_reference(on_card), device="cpu")
+    outs = {}
+    for label, model in (("cuda", on_card), ("cpu", on_host)):
+        logits, cache = prefill(model, {"tokens": prompt32.to(model.device)}, 48)
+        steps, tokens = [logits.cpu()], []
+        for _ in range(8):
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            tokens.append(tok.cpu())
+            logits, cache = decode_step(model, cache, tok)
+            steps.append(logits.cpu())
+        outs[label] = (torch.stack(steps, dim=1), torch.cat(tokens, dim=1))
+    (lg, tg), (lc, tc) = outs["cuda"], outs["cpu"]
+    err, scale = float((lg - lc).abs().max()), float(lc.abs().max())
+    if not (torch.equal(tg, tc) and err <= TWIN_REL * scale):
+        raise AssertionError(f"(b) card and CPU differ: tokens equal {torch.equal(tg, tc)}, "
+                             f"max |diff| {err} (max |logit| {scale}, tolerance {TWIN_REL})")
+    log(f"[serve] (b) 2 layers at full width, fp32, card against CPU: prefill + 8 decode "
+        f"steps, max |diff| {err:.3e}, {err / scale:.3e} of max |logit| (tolerance "
+        f"{TWIN_REL}); greedy tokens equal {tg.tolist()}; {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+    del on_card, on_host, outs
+
+    # (c) the timed serve in bf16
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen(), device=dev)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    serve_requests(model, 4, 4, 512, 4, np.random.default_rng(1), log=lambda m: None)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_requests(model, 8, 4, 512, 32, np.random.default_rng(SERVE_SEED),
+                         log=lambda m: log(f"[serve] (c) {m}"))
+    peak = torch.cuda.max_memory_allocated()
+    toks = torch.cat(out["tokens"])
+    if not (toks.shape == (8, 32) and int(toks.min()) >= 0 and
+            int(toks.max()) < cfg.padded_vocab):
+        raise AssertionError(f"(c) served tokens out of range: {tuple(toks.shape)}")
+    n_batches = len(out["tokens"])
+    # the bytes a decode step must move: every weight but the embedding
+    # table, of which it gathers B rows (the table is read whole as the
+    # unembedding when tied); each layer's K/V: kv_len - 1 valid slots read
+    # and the new one written, kv_len = pos + 1 averaged over this run's
+    # steps (513..543); the logits written
+    bsz, plen, new = 4, 512, 32
+    elt = model.embed.element_size()
+    embed_bytes = model.embed.numel() * elt
+    kv_len_mean = plen + 1 + (new - 2) / 2
+    slot = cfg.n_kv_heads * cfg.head_dim * elt
+    step_bytes = (weight_bytes - (0 if cfg.tie_embeddings else embed_bytes)
+                  + bsz * cfg.d_model * elt
+                  + cfg.n_layers * 2 * bsz * slot * kv_len_mean
+                  + bsz * cfg.padded_vocab * elt)
+    stats = {"prefill_ms": out["prefill_s"] / n_batches * 1e3,
+             "decode_ms_a_step": out["decode_s"] / out["decode_steps"] * 1e3,
+             "tok_per_s": out["tok_per_s"], "seconds": out["seconds"],
+             "weight_bytes": weight_bytes, "params": n_params, "peak_bytes": peak,
+             "decode_step_bytes": step_bytes,
+             "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+             "weights_over_hbm_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[serve] (c) {SERVE_ARCH} bf16, {n_params} parameters, 8 requests as 2 batches of "
+        f"4, prompt 512, 32 new tokens, greedy, on {card}: prefill "
+        f"{stats['prefill_ms']:.3f} ms a batch of 4 x 512, decode "
+        f"{stats['decode_ms_a_step']:.3f} ms a step of 4, {stats['tok_per_s']:.1f} tokens/s "
+        f"over {out['seconds']:.3f} s; weights {weight_bytes} bytes; "
+        f"max_memory_allocated {peak} bytes; decode bound (the {step_bytes:.0f} bytes a step "
+        f"reads and writes over 3.35 TB/s: weights but the embedding table, 4 of its rows, "
+        f"K/V at a mean kv_len of {kv_len_mean}) {stats['decode_bound_ms']:.4f} ms a step, the "
+        f"step at {stats['decode_ms_a_step'] / stats['decode_bound_ms']:.2f}x it (all the "
+        f"weights' bytes over 3.35 TB/s: {stats['weights_over_hbm_ms']:.4f} ms, "
+        f"{stats['decode_ms_a_step'] / stats['weights_over_hbm_ms']:.2f}x); "
+        f"{time.perf_counter() - t0:.1f} s with set-up")
+
+    # decode_attention's fp32 copy of the whole cache, at the timed serve's
+    # cache (4 x 544 slots) and mean kv_len: device time of one layer's
+    # call and of its two cache converts alone (CUDA graph, CUDA events),
+    # times the layers for a step
+    from repro_torch.models.layers import decode_attention
+    gcache = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    kv_shape = (bsz, plen + new, cfg.n_kv_heads, cfg.head_dim)
+    kc, vc = (torch.randn(kv_shape, generator=gcache, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    q1 = torch.randn((bsz, 1, cfg.n_heads, cfg.head_dim), generator=gcache,
+                     device=dev).to(torch.bfloat16)
+    kvl = torch.full((bsz,), int(kv_len_mean), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        attn_ms = kernel_device_ms(torch, decode_attention, (q1, kc, vc, kvl), 20)
+        conv_ms = kernel_device_ms(torch, lambda k, v: (k.float(), v.float()), (kc, vc), 20)
+    stats.update(decode_attention_ms_a_step=attn_ms * cfg.n_layers,
+                 cache_convert_ms_a_step=conv_ms * cfg.n_layers)
+    log(f"[serve] (c) decode_attention at a (4, 544, 8, 128) bf16 cache, kv_len "
+        f"{int(kv_len_mean)}: {attn_ms:.5f} ms a layer, of which the fp32 copy of K and V "
+        f"{conv_ms:.5f} ms; x {cfg.n_layers} layers {attn_ms * cfg.n_layers:.4f} and "
+        f"{conv_ms * cfg.n_layers:.4f} ms a step (CUDA graph, CUDA events); on {card}")
+    del kc, vc, q1
+
+    # the card's share of a decode step: 8 steps under the profiler
+    prompt = torch.from_numpy(rng.integers(3, cfg.vocab_size, (4, 512)).astype(np.int32)).to(dev)
+    logits, cache = prefill(model, {"tokens": prompt}, 512 + 9)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[activity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            logits, cache = decode_step(model, cache, tok)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_us(prof)
+    busy_ms = sum(us for _, us in busy.values()) / 1e3
+    top = sorted(busy.items(), key=lambda kv: -kv[1][1])[:5]
+    stats.update(profiled_decode_ms_a_step=wall_ms / 8, device_busy_ms_a_step=busy_ms / 8,
+                 decode_idle_share=1 - busy_ms / wall_ms)
+    log(f"[serve] (c) 8 decode steps under torch.profiler: {wall_ms / 8:.3f} ms a step, the "
+        f"device busy {busy_ms / 8:.3f} ms of it (idle share {1 - busy_ms / wall_ms:.4f}; "
+        f"{sum(c for c, _ in busy.values())} device ops); the busiest: "
+        + "; ".join(f"{name[:60]} x{c} {us / 1e3:.3f} ms" for name, (c, us) in top)
+        + f"; on {card}")
+    del model, cache
+
+    # (d) the serve CLI as a process
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--device", "cuda",
+                           "--requests", "8"], cwd=str(ROOT), capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"(d) the serve CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"[serve] (d) python -m repro_torch.launch.serve --device cuda --requests 8: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s on {card}; {proc.stdout.strip().splitlines()[-1]}")
+    log(f"[serve] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2007,6 +2339,14 @@ def main() -> int:
     finally:
         shutil.rmtree(twins, ignore_errors=True)
     log(f"[ingest] launches per kernel in the feed: {json.dumps(i_counts)}")
+
+    # -- 10: the data pipeline on the card
+    p_counts = pipeline_phase(torch)
+    log(f"[pipeline] launches per kernel in the card writes: {json.dumps(p_counts)}")
+
+    # -- 11: serving qwen3-1.7b at full width
+    s_stats = serving_phase(np, torch, profile, ProfilerActivity, card)
+    log(f"[serve] {json.dumps(s_stats)}; {card}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

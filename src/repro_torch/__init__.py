@@ -9,7 +9,16 @@ Layout mirrors ``repro`` module for module:
     repro_torch.kernels  -- hand-written CUDA kernels for the H100
                             (``csrc/``), their plain torch versions, and
                             the numpy in/out wrappers the pipeline calls
-    repro_torch.data     -- the synthetic loghub-style corpora
+    repro_torch.data     -- the synthetic loghub-style corpora and the
+                            LM data pipeline over logzip shards
+    repro_torch.ingest   -- the multi-tenant ingest daemon
+    repro_torch.lifecycle -- archive compaction and retention
+    repro_torch.models   -- the LM zoo's dense family: ``Transformer``,
+                            ``forward``, KV-cache ``prefill`` /
+                            ``decode_step``, weights carried from ``repro``
+    repro_torch.configs  -- the architecture configs
+    repro_torch.launch   -- the logzip CLI (``compress``) and the LM
+                            serving launcher (``serve``)
 
 The package imports torch and numpy, never jax and nothing of ``repro``.
 Entry points run their kernels on ``LogzipConfig.device`` ("cuda" by

@@ -1,4 +1,5 @@
-"""Synthetic loghub-style corpora (the port's own copy of ``repro.data.loggen``)."""
+"""Data plane: synthetic loghub-style corpora (the port's own copy of
+``repro.data.loggen``) and the logzip-shard pipeline (``data.pipeline``)."""
 
 from .loggen import (
     DATASETS,

@@ -1,0 +1,28 @@
+"""Model zoo, the port of ``repro.models``: the dense family's serving path.
+
+API:
+    cfg     = ModelConfig(...) (see repro_torch.configs for the archs)
+    model   = init_params(cfg, generator, device="cuda")  # a Transformer
+    logits, aux = forward(model, batch)
+    logits, cache = prefill(model, batch, max_len)
+    logits, cache = decode_step(model, cache, tokens)
+
+``weights.from_reference`` / ``to_reference`` carry the reference's
+parameter tree across. ``loss_fn`` waits for the training slice, and
+the families other than "dense" raise ``NotImplementedError``.
+"""
+
+from .config import ModelConfig
+from .serving import decode_step, init_cache, prefill
+from .transformer import Transformer, forward, init_params, tp_pad
+
+__all__ = [
+    "ModelConfig",
+    "Transformer",
+    "init_params",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_cache",
+    "tp_pad",
+]

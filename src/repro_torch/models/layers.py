@@ -1,0 +1,142 @@
+"""Core layers: RMSNorm, RoPE, GQA attention (KV-chunked for long
+sequences, one-token decode against a KV cache), dense FFN.
+
+Plain functions on tensors, the arithmetic of ``repro.models.layers``:
+compute dtype follows the inputs (bf16 in a bf16 model); softmax and
+norm statistics accumulate in fp32. The products are ``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """float64 on the host, as the reference computes them; callers cast."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` as fp32 on ``device``, uploaded once: an upload from
+    pageable host memory waits for the card, and every attention layer of
+    every step asks for the same table."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd), positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs_on(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs                    # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*n_rep, hd) by head repetition."""
+    if n_rep == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
+
+
+def attention(q, k, v, *, causal: bool, k_chunk: int = 1024, kv_len=None):
+    """KV-chunked (flash-style) multi-head attention.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
+    kv_len: optional (B,) valid KV prefix length (decode masking).
+
+    A loop over KV chunks carrying the running (acc, max, denom) in fp32,
+    so the (B, H, Sq, k_chunk) score tile is the largest transient.
+    """
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // kv)
+    v = _repeat_kv(v, h // kv)
+    scale = hd ** -0.5
+
+    k_chunk = min(k_chunk, sk)
+    while sk % k_chunk:  # largest divisor <= requested (prod shapes are 2^k)
+        k_chunk -= 1
+    nk = sk // k_chunk
+
+    qf = (q.float() * scale).transpose(1, 2)                    # (B, H, Sq, hd)
+    qpos = torch.arange(sq, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for ki in range(nk):
+        k_blk = k[:, ki * k_chunk:(ki + 1) * k_chunk].float().transpose(1, 2)  # (B, H, kc, hd)
+        v_blk = v[:, ki * k_chunk:(ki + 1) * k_chunk].float().transpose(1, 2)
+        s = qf @ k_blk.transpose(-1, -2)                         # (B, H, Sq, kc)
+        kpos = ki * k_chunk + torch.arange(k_chunk, device=q.device)
+        if causal:
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.where(mask[None, None], s, NEG_INF)
+        if kv_len is not None:
+            mask = kpos[None, :] < kv_len[:, None]
+            s = torch.where(mask[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ v_blk
+        m = m_new
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """One-token attention against a cache.
+
+    q: (B, 1, H, hd); caches: (B, S, KV, hd); kv_len: (B,) valid length
+    (the new token's K/V must already be written at kv_len - 1).
+
+    GQA-native, as the reference: q is folded to (B, KV, H/KV, hd) and
+    contracted straight against the cache, with no KV head repetition;
+    scores and output accumulate in fp32, and the probabilities are
+    rounded to the cache's dtype before the second product.
+    """
+    b, _, h, hd = q.shape
+    s_len, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    q2 = q.reshape(b, kv, g, hd).float()
+    kc = k_cache.float().permute(0, 2, 3, 1)                     # (B, KV, hd, S)
+    s = (q2 @ kc) * hd ** -0.5                                   # (B, KV, g, S)
+    mask = torch.arange(s_len, device=q.device)[None, :] < kv_len[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    vc = v_cache.float().transpose(1, 2)                         # (B, KV, S, hd)
+    out = p.to(v_cache.dtype).float() @ vc                       # (B, KV, g, hd)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def ffn(x, params, act: str):
+    """Dense FFN. swiglu: w1 (gate), w3 (up), w2 (down); gelu: w1, w2."""
+    if act == "swiglu":
+        h = F.silu(x @ params["w1"]) * (x @ params["w3"])
+    else:
+        h = x @ params["w1"]
+        if "b1" in params:
+            h = h + params["b1"]
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    out = h @ params["w2"]
+    if "b2" in params:
+        out = out + params["b2"]
+    return out

@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import models
 from repro_torch.core import codec, parallel, query, stream
 from repro_torch.core.encode import ColumnCodec
 from repro_torch.core.ise import iterative_structure_extraction
 from repro_torch.core.match import match_first
+from repro_torch.data import pipeline
 from repro_torch.kernels import ops
+from repro_torch.models import weights
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -105,7 +108,22 @@ def _entry_points():
         "count_by_template": lambda: query.count_by_template(_archive(), device="cuda"),
         "top_k": lambda: query.top_k(_archive(), "Level", device="cuda"),
         "time_histogram": lambda: query.time_histogram(_archive(), "Time", device="cuda"),
+        # the data pipeline: the writers' cfg=None is LogzipConfig(level=3) on "cuda"
+        "write_logzip_shards": lambda: pipeline.write_logzip_shards(["a b c"], os.devnull + "/x"),
+        "write_logzip_stream": lambda: pipeline.write_logzip_stream(["a b c"], os.devnull + "/x"),
+        "TokenBatcher": lambda: pipeline.TokenBatcher(os.devnull),
+        # the LM serving path
+        "init_params": lambda: models.init_params(_small_lm()),
+        "Transformer": lambda: models.Transformer(_small_lm()),
+        "init_cache": lambda: models.init_cache(_small_lm(), 1, 4),
+        "from_reference": lambda: weights.from_reference(_small_lm(), {}),
     }
+
+
+def _small_lm():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b").reduced()
 
 
 def _stream(cfg):
