@@ -46,7 +46,7 @@ Phases, each of which raises on failure:
    screens, 8,192-line chunks; its ``colcodec_transform`` launches
    printed) and
    ``compress_parallel`` over four spawned workers on the card (LZJM of
-   the first 500,000 lines, a chunk per worker), each equal byte for byte
+   the first 250,000 lines, a chunk per worker), each equal byte for byte
    to its ``device="cpu"``
    twin and decompressing to the lines; then on the LZJF of phase 3, the
    LZJM and the LZJS, ``count_by_template``, ``top_k`` of two header
@@ -66,7 +66,7 @@ Phases, each of which raises on failure:
    input, times its launches, beside the floor; time
    ``ops.match_first_bucketed`` end to end against the per-bucket
    composition it replaced;
-8. durability, on the first 100,000 lines of phase 3: sessions of the
+8. durability, on the first 60,000 lines of phase 3: sessions of the
    port's ``TenantStore`` (an empty archive first, then an append session
    that fsyncs each commit, every line journaled first), its archive
    written through a ``FaultyOpener``; a clean one on the card under
@@ -83,7 +83,7 @@ Phases, each of which raises on failure:
    ``wildcard_match_first`` and ``colcodec_transform`` must have been
    launched;
 9. the ingest daemon, the lifecycle layer and the CLI on the card: one
-   ``IngestDaemon`` with a ``RetentionManager``, four tenants of 100,000
+   ``IngestDaemon`` with a ``RetentionManager``, four tenants of 12,500
    lines of phase 3's corpus over one unix socket, a client thread each,
    every line acked, then a drain that seals each session and compacts it
    into the sealed tier, each sealed archive decoding to its lines, no
@@ -108,8 +108,15 @@ Phases, each of which raises on failure:
    ``forward`` in fp32 (TF32 off), a 2-layer full-width twin on the card
    against the CPU, a timed bf16 serve of 8 requests (prefill and decode
    ms, tokens/s, peak memory, the decode bound), and ``python -m
-   repro_torch.launch.serve --device cuda`` as a process. Then print the
-   ``kernels`` line and the result line.
+   repro_torch.launch.serve --device cuda`` as a process;
+12. serving the LM zoo's other families at full width: rwkv6-7b (32
+   layers), jamba-v0.1-52b (8 of 32: one block of mamba, attention, MoE
+   and dense FFN), dbrx-132b (2 of 40), internvl2-2b (24, a 256-patch
+   prefix) and whisper-base (6 + 6, 1500 frames): for each the cache
+   against ``forward`` in fp32, a full-width CPU twin, a timed bf16 serve
+   (the decode bound, and the experts a MoE step routes to), then
+   ``launch.serve`` as six processes at once, one for each non-dense arch.
+   Then print the ``kernels`` line and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -140,18 +147,25 @@ OPS_SEED = 3
 SIMCOUNT_ROWS = 65_536
 STREAM_CHUNK_LINES = 8192  # StreamingCompressor's default chunk
 LZJM_WORKERS = 4
-# the LZJM takes the first half of the lines, a chunk per worker: with all
-# 1,000,000 the script ran 711-800 s of its 1200 s on slower hosts
-LZJM_LINES = 500_000
+# the LZJM takes the first quarter of the lines, a chunk per worker: with
+# all 1,000,000 the script ran 711-800 s of its 1200 s on slower hosts, and
+# with the first 500,000 beside phase 12, 1,066 s on one H100 80GB HBM3 host
+LZJM_LINES = 250_000
 LZJM_CHUNK_LINES = LZJM_LINES // LZJM_WORKERS
-DURABLE_LINES = 100_000  # phase 8: the first lines of phase 3's corpus
+# phase 8: the first lines of phase 3's corpus; 100,000 (13 chunks) until
+# the script with phase 12 ran 1,056-1,066 s on slower H100 80GB HBM3
+# hosts; 60,000 keeps the 8 chunks its cuts need (chunk 6's commit)
+DURABLE_LINES = 60_000
 # phase 9: the feed's tenants split the first lines of phase 3's corpus.
 # At 250,000 lines a tenant (all 1,000,000) the feed ran 349 s at 2,864
-# lines/s and the phase 595 s on an H100 80GB HBM3 host: cut to 100,000
+# lines/s and the phase 595 s on an H100 80GB HBM3 host: cut to 100,000;
+# then to 12,500 (and the crash leg and the CLI's input halved), to keep
+# the script under 1,050 s of its 1,200 beside phase 12 (at 50,000 and
+# 25,000 it ran 1,066 and 1,056 s on slower H100 80GB HBM3 hosts)
 INGEST_TENANTS = 4
-INGEST_TENANT_LINES = 100_000
-INGEST_CRASH_LINES = 50_000  # the crash leg's tenant
-INGEST_CLI_LINES = 100_000  # pack / unpack / agg
+INGEST_TENANT_LINES = 12_500
+INGEST_CRASH_LINES = 25_000  # the crash leg's tenant
+INGEST_CLI_LINES = 50_000  # pack / unpack / agg
 SERVE_LINES = 20_000
 INGEST_WAIT = 600.0  # seconds any one wait of phase 9 may take
 # phase 10: the data pipeline, as examples/train_lm_on_logs.py:46-50 sets it
@@ -164,6 +178,31 @@ SERVE_ARCH = "qwen3-1.7b"
 SERVE_SEED = 0
 CACHE_REL = 1e-4  # (a): fp32 prefill + decode against forward, of max |logit|
 TWIN_REL = 1e-4   # (b): fp32 on the card against the CPU, of max |logit|
+# phase 12: the LM zoo's other families served on the card, each at its
+# published widths; depth cut only where one card cannot hold the model:
+# arch -> (layers on the card, the published config's shape)
+FAMILIES = {
+    "rwkv6-7b": (32, dict(n_layers=32, d_model=4096, n_rwkv_heads=64, rwkv_head_dim=64,
+                          d_ff=14336, padded_vocab=65536, family="ssm")),
+    "jamba-v0.1-52b": (8, dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+                               head_dim=128, d_ff=14336, padded_vocab=65536, family="hybrid",
+                               n_experts=16, top_k=2, attn_every=8, moe_every=2, d_inner=8192,
+                               ssm_state=16)),
+    "dbrx-132b": (2, dict(n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+                          d_ff=10752, padded_vocab=100352, family="moe", n_experts=16,
+                          top_k=4)),
+    "internvl2-2b": (24, dict(n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
+                              head_dim=128, d_ff=8192, padded_vocab=92672, family="vlm",
+                              n_patches=256)),
+    "whisper-base": (6, dict(n_layers=6, n_enc_layers=6, d_model=512, n_heads=8, n_kv_heads=8,
+                             head_dim=64, d_ff=2048, padded_vocab=51968, family="audio",
+                             n_frames=1500, tie_embeddings=True)),
+}
+# (d): the serve CLI on each non-dense arch's reduced config (grok-1 runs
+# dbrx's code with 8 experts top-2: at 64 layers of 6,144 wide experts no
+# part of it fits the card that dbrx's 2 layers do not already cover)
+FAMILY_CLI = ["dbrx-132b", "grok-1-314b", "jamba-v0.1-52b", "internvl2-2b", "whisper-base",
+              "rwkv6-7b"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
 # one operation per lane per clock
@@ -895,7 +934,7 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
     m_lines = lines[:LZJM_LINES]
     m_bytes = sum(len(line.encode("utf-8", "surrogateescape")) + 1 for line in m_lines)
     log(f"[lzjm] cut to the first {len(m_lines)} lines: with all {len(lines)} the script ran "
-        f"711-800 s of its 1200 s on slower hosts")
+        f"711-800 s of its 1200 s on slower hosts, with 500000 beside phase 12 1066 s")
     t0 = time.perf_counter()
     lzjm = compress_parallel(m_lines, LogzipConfig(format=fmt, device="cuda"),
                              n_workers=LZJM_WORKERS, chunk_lines=LZJM_CHUNK_LINES)
@@ -1850,6 +1889,325 @@ def serving_phase(np, torch, profile, activity, card: str) -> dict:
     return stats
 
 
+def decode_bytes(cfg, model, bsz: int, kv_len: float) -> float:
+    """The bytes one decode step of ``bsz`` rows must move, at a mean
+    self-attention length ``kv_len``: every weight but the embedding table,
+    of which it gathers ``bsz`` rows (read whole as the unembedding when
+    tied); each layer's state read and written (K/V: kv_len - 1 valid slots
+    read and one written; mamba's conv and fp32 ssm states; RWKV's fp32 wkv
+    state and its two shifts; whisper's cross-attention K/V read); the
+    logits written. MoE weights count every expert: the dispatch runs them
+    all."""
+    elt = model.embed.element_size()
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        n -= model.embed.numel() * elt
+    n += bsz * cfg.d_model * elt
+    for block in model.blocks:
+        for sub in block.values():
+            if sub.kind == "attn":
+                n += 2 * bsz * cfg.n_kv_heads * cfg.head_dim * elt * kv_len
+            elif sub.kind == "mamba":
+                n += 2 * bsz * ((cfg.ssm_conv - 1) * cfg.d_inner * elt
+                                + cfg.d_inner * cfg.ssm_state * 4)
+            else:
+                n += 2 * bsz * (cfg.n_rwkv_heads * cfg.rwkv_head_dim ** 2 * 4
+                                + 2 * cfg.d_model * elt)
+    if cfg.n_enc_layers:
+        n += cfg.n_layers * 2 * bsz * cfg.n_frames * cfg.n_kv_heads * cfg.head_dim * elt
+    return n + bsz * cfg.padded_vocab * elt
+
+
+def greedy(torch, model, batch: dict, max_len: int, steps: int):
+    """Prefill and ``steps`` greedy decode steps through the entry points
+    -> (logits (B, steps + 1, V) fp32 on the host, tokens (B, steps))."""
+    from repro_torch.models import decode_step, prefill
+
+    logits, cache = prefill(model, batch, max_len)
+    outs, toks = [logits.float().cpu()], []
+    for _ in range(steps):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        toks.append(tok.cpu())
+        logits, cache = decode_step(model, cache, tok)
+        outs.append(logits.float().cpu())
+    return torch.stack(outs, dim=1), torch.cat(toks, dim=1)
+
+
+def greedy_by_sublayer(torch, model, tokens, max_len: int, card_tokens):
+    """(b)'s CPU side for a model the host should not hold whole: the
+    prompt and the card's greedy tokens (fed in turn) through each
+    sub-layer, whose weights alone are on the host at a time, with the
+    serving path's own sub-layer steps -> logits (B, steps + 1, V) and the
+    CPU's greedy tokens."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.serving import decode_sublayer, prefill_sublayer
+    from repro_torch.models.transformer import Sublayer
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        embed = model.embed.detach().cpu()
+        b, s = tokens.shape
+        xs = [embed[tokens.cpu().long()]] + [embed[card_tokens[:, k:k + 1].long()]
+                                            for k in range(card_tokens.shape[1])]
+        positions = torch.arange(s).expand(b, s)
+        for block in model.blocks:
+            for j in range(cfg.block_period):
+                sub = block[f"sub{j}"]
+                host = Sublayer(cfg, torch.float32, "cpu", sub.kind, sub.ffn_kind == "moe")
+                host.load_state_dict(sub.state_dict())
+                xs[0], state = prefill_sublayer(xs[0], host, cfg, positions, max_len)
+                for k in range(1, len(xs)):
+                    pos = s + k - 1
+                    xs[k] = decode_sublayer(
+                        xs[k], host, state, cfg, torch.full((b, 1), pos),
+                        torch.tensor([min(pos, max_len - 1)]),
+                        torch.full((b,), pos + 1, dtype=torch.int32))
+                del host, state
+        ln_f, unembed = model.ln_f.detach().cpu(), model.unembedding().detach().cpu()
+        logits = torch.stack([rms_norm(x[:, -1], ln_f, cfg.norm_eps) @ unembed for x in xs],
+                             dim=1)
+    return logits, logits[:, :-1].argmax(-1).to(torch.int32)
+
+
+def families_phase(np, torch, card: str) -> dict:
+    """Phase 12: the LM zoo's other families at their published widths on
+    the card (``FAMILIES``: depth cut where one card cannot hold the
+    model), each built from seed 0 and freed before the next -> the serve
+    figures per arch.
+
+    (a) fp32, TF32 off: prefill half of a (2, 128) prompt (after a (2,
+    256, d) patch prefix for the VLM, with (2, 1500, d) frames for whisper)
+    and decode the rest; the logits equal ``forward``'s at the same
+    positions within ``CACHE_REL`` of max |logit|. A MoE drops slots by a
+    capacity that depends on the tokens of a call, so a decode step drops
+    other slots than the forward (the reference's rule): here every expert
+    has room for every slot (capacity factor E / top_k). RWKV's chunked
+    form clamps the cumulative log-decay within a chunk, which decode's
+    recurrence does not (the reference's, copied): its gap at the published
+    64-step chunk is printed, and the check holds with one-step chunks,
+    which clamp as decode does. (b) the CPU twin at full width in fp32:
+    prefill of a 64-token prompt and 8 greedy decode steps, logits within
+    ``TWIN_REL``, tokens equal; one block whole for rwkv6, internvl2 and
+    whisper, and sub-layer by sub-layer on (a)'s model for the MoE archs
+    (one sub-layer's weights on the host at a time, the card's tokens fed
+    in turn). (c) bf16: 8 requests as 2 batches of 4, 32 new tokens, greedy,
+    prompt 512 (64 for whisper), through ``serve_requests`` after one
+    untimed batch; the decode step's bound, and for a MoE the experts a
+    step routes to (counted over 8 steps). (d) ``python -m
+    repro_torch.launch.serve --arch <arch> --device cuda --requests 4`` for
+    each of ``FAMILY_CLI``, all at once."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models.transformer import Transformer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 parity would not hold")
+    out = {}
+    for arch, (depth, published) in FAMILIES.items():
+        t_arch = time.perf_counter()
+        full_cfg = get_config(arch)
+        shape = {k: getattr(full_cfg, k) for k in published}
+        if shape != published:
+            raise AssertionError(f"{arch} is not the published config: {shape}")
+        cfg = dataclasses.replace(full_cfg, n_layers=depth)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        rng = np.random.default_rng(SERVE_SEED)
+        p = cfg.n_patches
+        stats = {"layers": depth, "published_layers": full_cfg.n_layers}
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(SERVE_SEED)
+
+        def stubs(b):
+            """The modality inputs, random (zeros would hide them)."""
+            extra = {}
+            if cfg.n_patches:
+                extra["vision"] = torch.from_numpy(rng.standard_normal(
+                    (b, cfg.n_patches, cfg.d_model), dtype=np.float32)).to(dev)
+            if cfg.n_enc_layers:
+                extra["frames"] = torch.from_numpy(rng.standard_normal(
+                    (b, cfg.n_frames, cfg.d_model), dtype=np.float32)).to(dev)
+            return extra
+
+        # (a) the cache against the forward, at the table's depth in fp32
+        t0 = time.perf_counter()
+        acfg = cfg32
+        if cfg.n_experts:
+            acfg = dataclasses.replace(acfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        model = init_params(acfg, gen(), device=dev)
+        toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 128)).astype(np.int32)).to(dev)
+        extra = stubs(2)
+
+        def cache_gap():
+            full, _ = forward(model, {"tokens": toks, **extra})
+            logits, cache = prefill(model, {"tokens": toks[:, :64], **extra}, 128 + p)
+            seq = [logits]
+            for t in range(64, 128):
+                logits, cache = decode_step(model, cache, toks[:, t:t + 1])
+                seq.append(logits)
+            got, want = torch.stack(seq[:-1], dim=1), full[:, p + 63:p + 127]
+            return (bool(torch.isfinite(got).all()), float((got - want).abs().max()),
+                    float(want.abs().max()))
+
+        finite, err, scale = cache_gap()
+        note = ""
+        if cfg.ssm_kind == "rwkv6" and not cfg.attn_every:
+            note = (f"; at the published {cfg.ssm_chunk}-step chunk {err / scale:.3e} of max "
+                    f"|logit| (the chunk's clamped cumulative decay), held with 1-step chunks")
+            stats["cache_rel_published_chunk"] = err / scale
+            model.cfg = dataclasses.replace(acfg, ssm_chunk=1)
+            finite, err, scale = cache_gap()
+            model.cfg = acfg
+        if not (finite and err <= CACHE_REL * scale):
+            raise AssertionError(f"(a) {arch}: prefill + decode differ from forward by {err} "
+                                 f"(max |logit| {scale}, tolerance {CACHE_REL} of it){note}")
+        stats["cache_rel"] = err / scale
+        torch.cuda.synchronize()
+        log(f"[family] {arch} (a) {depth} of {full_cfg.n_layers} layers at full width, fp32, "
+            f"TF32 off{', capacity for every slot' if cfg.n_experts else ''}: prefill 64 + 64 "
+            f"decode steps against forward over (2, 128){f' after {p} patches' if p else ''}"
+            f"{f' with {cfg.n_frames} frames' if cfg.n_enc_layers else ''}: max |diff| "
+            f"{err:.3e}, {err / scale:.3e} of max |logit| {scale:.3f} (tolerance {CACHE_REL})"
+            f"{note}; {time.perf_counter() - t0:.1f} s on {card}")
+
+        # (b) the CPU twin at full width, fp32
+        t0 = time.perf_counter()
+        prompt = torch.from_numpy(rng.integers(3, cfg.vocab_size, (2, 64)).astype(np.int32)).to(dev)
+        extra = stubs(2)
+        max_len = 64 + 9 + p
+        if cfg.n_experts:
+            model.cfg = cfg32  # the config's own capacity
+            lg, tg = greedy(torch, model, {"tokens": prompt}, max_len, 8)
+            lc, tc = greedy_by_sublayer(torch, model, prompt, max_len, tg)
+            how = f"sub-layer by sub-layer over (a)'s {depth} layers"
+        else:
+            del model
+            torch.cuda.empty_cache()
+            one = dataclasses.replace(cfg32, n_layers=cfg.block_period)
+            model = init_params(one, gen(), device=dev)
+            host = Transformer(one, "cpu")
+            host.load_state_dict(model.state_dict())
+            lg, tg = greedy(torch, model, {"tokens": prompt, **extra}, max_len, 8)
+            lc, tc = greedy(torch, host, {"tokens": prompt.cpu(),
+                                          **{k: v.cpu() for k, v in extra.items()}}, max_len, 8)
+            del host
+            how = f"one block ({cfg.block_period} layer{'s' * (cfg.block_period > 1)}) whole"
+        err, scale = float((lg - lc).abs().max()), float(lc.abs().max())
+        if not (torch.equal(tg, tc) and err <= TWIN_REL * scale):
+            raise AssertionError(f"(b) {arch}: card and CPU differ: tokens equal "
+                                 f"{torch.equal(tg, tc)}, max |diff| {err} (max |logit| {scale}, "
+                                 f"tolerance {TWIN_REL})")
+        stats["twin_rel"] = err / scale
+        log(f"[family] {arch} (b) {how}, full width, fp32, card against CPU: prefill 64 + 8 "
+            f"greedy steps, max |diff| {err:.3e}, {err / scale:.3e} of max |logit| (tolerance "
+            f"{TWIN_REL}); tokens equal {tg.tolist()}; {time.perf_counter() - t0:.1f} s on {card}")
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) the timed serve in bf16
+        t0 = time.perf_counter()
+        model = init_params(cfg, gen(), device=dev)
+        weight_bytes = sum(q.numel() * q.element_size() for q in model.parameters())
+        n_params = sum(q.numel() for q in model.parameters())
+        plen = 64 if cfg.n_enc_layers else 512
+        serve_requests(model, 4, 4, plen, 4, np.random.default_rng(1), log=lambda m: None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve_requests(model, 8, 4, plen, 32, np.random.default_rng(SERVE_SEED),
+                             log=lambda m: None)
+        peak = torch.cuda.max_memory_allocated()
+        served = torch.cat(res["tokens"])
+        if not (served.shape == (8, 32) and int(served.min()) >= 0
+                and int(served.max()) < cfg.padded_vocab):
+            raise AssertionError(f"(c) {arch}: served tokens out of range: {tuple(served.shape)}")
+        kv_len = plen + p + 1 + (32 - 2) / 2
+        step_bytes = decode_bytes(cfg, model, 4, kv_len)
+        stats.update(params=n_params, weight_bytes=weight_bytes, peak_bytes=peak,
+                     prefill_ms=res["prefill_s"] / len(res["tokens"]) * 1e3,
+                     decode_ms_a_step=res["decode_s"] / res["decode_steps"] * 1e3,
+                     tok_per_s=res["tok_per_s"], decode_step_bytes=step_bytes,
+                     decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+        routed = ""
+        if cfg.n_experts:
+            # the experts each MoE call of 8 decode steps routes to, counted
+            # by a wrapper of the router (this measurement only)
+            seen, router = [], moe_module._router
+
+            def counting(x, wg, top_k):
+                gates, experts, aux = router(x, wg, top_k)
+                seen.append(int(experts.unique().numel()))
+                return gates, experts, aux
+
+            batch = {"tokens": torch.from_numpy(
+                rng.integers(3, cfg.vocab_size, (4, plen)).astype(np.int32)).to(dev)}
+            logits, cache = prefill(model, batch, plen + 9)
+            seen.clear()
+            moe_module._router = counting
+            try:
+                for _ in range(8):
+                    logits, cache = decode_step(
+                        model, cache, logits.argmax(-1)[:, None].to(torch.int32))
+            finally:
+                moe_module._router = router
+            del cache
+            expert_bytes = ((3 if cfg.ffn_act == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+                            * model.embed.element_size())
+            distinct = sum(seen) / len(seen)
+            routed_bytes = step_bytes - len(seen) / 8 * (cfg.n_experts - distinct) * expert_bytes
+            stats.update(experts_routed_a_call=distinct, routed_step_bytes=routed_bytes,
+                         routed_bound_ms=routed_bytes / HBM_BYTES_PER_S * 1e3)
+            routed = (f"; a step routes its 4 tokens to {distinct:.2f} of {cfg.n_experts} "
+                      f"experts a MoE layer (8 steps): {routed_bytes:.0f} bytes, "
+                      f"{stats['routed_bound_ms']:.4f} ms")
+        log(f"[family] {arch} (c) bf16, {depth} layers, {n_params} parameters, 8 requests as 2 "
+            f"batches of 4, prompt {plen}{f' after {p} zero patches' if p else ''}"
+            f"{f' with {cfg.n_frames} zero frames' if cfg.n_enc_layers else ''}, 32 new tokens, "
+            f"greedy, on {card}: prefill {stats['prefill_ms']:.3f} ms a batch, decode "
+            f"{stats['decode_ms_a_step']:.3f} ms a step of 4, {res['tok_per_s']:.1f} tokens/s "
+            f"over {res['seconds']:.3f} s; weights {weight_bytes} bytes; max_memory_allocated "
+            f"{peak} bytes; decode bound (the {step_bytes:.0f} bytes a step moves over 3.35 "
+            f"TB/s, every expert counted, K/V at a mean kv_len of {kv_len}) "
+            f"{stats['decode_bound_ms']:.4f} ms, the step at "
+            f"{stats['decode_ms_a_step'] / stats['decode_bound_ms']:.2f}x it{routed}; "
+            f"{time.perf_counter() - t0:.1f} s with set-up")
+        del model
+        torch.cuda.empty_cache()
+        stats["seconds"] = time.perf_counter() - t_arch
+        out[arch] = stats
+
+    # (d) the serve CLI on each non-dense arch's reduced config, all at once
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--device", "cuda",
+         "--requests", "4"], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch in FAMILY_CLI}
+    try:
+        for arch, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"(d) the serve CLI on {arch} exited {proc.returncode}: "
+                                     f"{stderr[-2000:]}")
+            log(f"[family] (d) python -m repro_torch.launch.serve --arch {arch} --device cuda "
+                f"--requests 4: exit 0; {stdout.strip().splitlines()[-1]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[family] (d) {len(procs)} processes at once in {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[family] phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2347,6 +2705,10 @@ def main() -> int:
     # -- 11: serving qwen3-1.7b at full width
     s_stats = serving_phase(np, torch, profile, ProfilerActivity, card)
     log(f"[serve] {json.dumps(s_stats)}; {card}")
+
+    # -- 12: the LM zoo's other families at full width
+    f_stats = families_phase(np, torch, card)
+    log(f"[family] {json.dumps(f_stats)}; {card}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

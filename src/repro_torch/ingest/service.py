@@ -490,6 +490,9 @@ class IngestDaemon:
                 conn, _addr = self._listener.accept()
             except OSError:
                 return  # listener closed: drain begun
+            if self._draining:  # shutdown's wake-up connection, or a late client
+                conn.close()
+                return
             t = threading.Thread(target=self._handle, args=(conn,),
                                  daemon=True, name="ingest-conn")
             t.start()
@@ -505,6 +508,11 @@ class IngestDaemon:
             self._draining = True
             workers = list(self._workers.values())
             conns = list(self._conns.values()) + list(self._all_socks)
+        # closing the listener does not wake a thread blocked in accept()
+        # on it (Linux): a connection of our own does, and the loop, seeing
+        # the drain, returns
+        if self._wake_accept() and self._accept_thread is not None:
+            self._accept_thread.join(timeout)
         try:
             self._listener.close()
         except OSError:
@@ -530,6 +538,17 @@ class IngestDaemon:
             ok = w.done.wait(timeout) and ok
         self._drained.set()
         return ok
+
+    def _wake_accept(self) -> bool:
+        """Connect to the listener once; False if that failed."""
+        family = socket.AF_UNIX if isinstance(self.address, str) else socket.AF_INET
+        try:
+            with socket.socket(family, socket.SOCK_STREAM) as s:
+                s.settimeout(5.0)
+                s.connect(self.address)
+        except OSError:
+            return False
+        return True
 
     def wait(self, timeout: float | None = None) -> bool:
         return self._drained.wait(timeout)

@@ -23,14 +23,25 @@ import torch
 def serve_requests(model, requests: int, batch: int, prompt_len: int, max_new: int,
                    rng: np.random.Generator, log=print) -> dict:
     """Serve ``requests`` random prompts in batches of ``batch``: a
-    prefill, then ``max_new - 1`` greedy decode steps. Returns the
+    prefill (after ``cfg.n_patches`` zero patch embeddings for a VLM,
+    with ``cfg.n_frames`` zero frames for the audio encoder), then
+    ``max_new - 1`` greedy decode steps. Returns the
     generated tokens of each batch and the seconds spent, the card's work
     synchronised before each clock read."""
     from ..models import decode_step, prefill
 
     cfg = model.cfg
     dev = model.device
-    max_len = prompt_len + max_new
+    max_len = prompt_len + max_new + (cfg.n_patches or 0)
+    # the modality stubs, zeros as in the reference: the VLM's patch
+    # embeddings before the prompt, the audio encoder's frames
+    stubs = {}
+    if cfg.n_patches:
+        stubs["vision"] = torch.zeros((batch, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16,
+                                      device=dev)
+    if cfg.n_enc_layers:
+        stubs["frames"] = torch.zeros((batch, cfg.n_frames, cfg.d_model), dtype=torch.bfloat16,
+                                      device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     served, outputs, prefill_s, decode_s, steps = 0, [], 0.0, 0.0, 0
     sync()
@@ -39,7 +50,8 @@ def serve_requests(model, requests: int, batch: int, prompt_len: int, max_new: i
         n = min(batch, requests - served)
         toks = rng.integers(3, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
         tp = time.perf_counter()
-        logits, cache = prefill(model, {"tokens": torch.from_numpy(toks).to(dev)}, max_len)
+        logits, cache = prefill(model, {"tokens": torch.from_numpy(toks).to(dev), **stubs},
+                                max_len)
         tok = logits.argmax(-1)[:, None].to(torch.int32)
         sync()
         td = time.perf_counter()

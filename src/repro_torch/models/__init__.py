@@ -1,15 +1,16 @@
-"""Model zoo, the port of ``repro.models``: the dense family's serving path.
+"""Model zoo, the port of ``repro.models``: the serving path of every
+family (dense, MoE, the Mamba hybrid, RWKV6, the VLM, the audio
+encoder-decoder).
 
 API:
     cfg     = ModelConfig(...) (see repro_torch.configs for the archs)
     model   = init_params(cfg, generator, device="cuda")  # a Transformer
-    logits, aux = forward(model, batch)
+    logits, aux = forward(model, batch)     # batch: tokens (+ vision / frames)
     logits, cache = prefill(model, batch, max_len)
     logits, cache = decode_step(model, cache, tokens)
 
 ``weights.from_reference`` / ``to_reference`` carry the reference's
-parameter tree across. ``loss_fn`` waits for the training slice, and
-the families other than "dense" raise ``NotImplementedError``.
+parameter tree across. ``loss_fn`` waits for the training slice.
 """
 
 from .config import ModelConfig

@@ -1,108 +1,199 @@
-"""Prefill + single-token decode with a KV cache: the attention layers of
-``repro.models.serving``.
+"""Prefill + single-token decode with per-family caches
+(``repro.models.serving``).
 
 Cache layout (a dict of tensors on the model's device):
     cache = {
       "pos": (B,) int32 — tokens already in cache,
-      "blocks": [{"sub<j>": {"k", "v"}} for each block],
+      "blocks": [{"sub<j>": <per-kind state>} for each block],
+      ["xattn": [{"k", "v"} for each block] (whisper)],
     }
-    k, v: (B, M, KV, hd) in the model's dtype — M = cache capacity.
+    attn  state: k/v (B, M, KV, hd) in the model's dtype — M = cache capacity
+    mamba state: conv (B, dc-1, di) in the model's dtype, h (B, di, ds) fp32
+    rwkv6 state: xt (B, d), s (B, H, hd, hd) fp32, xc (B, d)
+    xattn: k/v (B, n_frames, KV, hd), the encoder memory's, read by decode
 
-``decode_step`` writes the new token's K/V into the cache in place and
-returns ``(logits, cache)`` as the reference does. As there, every row
-writes at ``pos[0]``, the write's start is clamped to ``M - 1`` (what
-``lax.dynamic_update_slice`` does), and row ``b`` attends to its first
-``pos[b] + 1`` slots. Only ``cfg.family == "dense"`` is ported.
+Each leaf has the shape of the reference's leaf for that block (the
+reference stacks them over blocks). ``decode_step`` updates the states in
+place and returns ``(logits, cache)`` with ``pos + 1``. As in the reference, every row
+writes its K/V at ``pos[0]``, the write's start is clamped to ``M - 1``
+(what ``lax.dynamic_update_slice`` does), and row ``b`` attends to its
+first ``pos[b] + 1`` slots.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.ops import check_device
+from . import mamba, rwkv6
 from .config import ModelConfig
-from .layers import attention, decode_attention, ffn, rms_norm
-from .transformer import Transformer, _attn_qkv, _dtype, check_family, embed_inputs
+from .layers import decode_attention, rms_norm
+from .transformer import (
+    Sublayer,
+    Transformer,
+    _attn_qkv,
+    _dtype,
+    _cross_attn,
+    _cross_kv,
+    embed_inputs,
+    _encoder_forward,
+    _ffn_seq,
+    _mixer_seq,
+    _sin_pos_on,
+)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda") -> dict:
-    """An empty cache: every slot zero, ``pos`` zero."""
-    check_family(cfg)
+    """An empty cache: every state zero, ``pos`` zero."""
     dev = check_device(device)
     dt = _dtype(cfg)
-    shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
 
-    def sub_state():
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def sub_state(j):
+        kind = cfg.layer_kind(j)
+        if kind == "attn":
+            shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": zeros(*shape), "v": zeros(*shape)}
+        if kind == "mamba":
+            conv, h = mamba.init_state(batch_size, cfg, dt, dev)
+            return {"conv": conv, "h": h}
+        xt, s = rwkv6.init_state(batch_size, cfg, dt, dev)
+        return {"xt": xt, "s": s, "xc": zeros(batch_size, cfg.d_model)}
 
     n_blocks = cfg.n_layers // cfg.block_period
-    return {"pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
-            "blocks": [{f"sub{j}": sub_state() for j in range(cfg.block_period)}
-                       for _ in range(n_blocks)]}
+    cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+             "blocks": [{f"sub{j}": sub_state(j) for j in range(cfg.block_period)}
+                        for _ in range(n_blocks)]}
+    if cfg.n_enc_layers:
+        shape = (batch_size, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
+        cache["xattn"] = [{"k": zeros(*shape), "v": zeros(*shape)} for _ in range(n_blocks)]
+    return cache
 
 
 # ------------------------------------------------------------------ prefill
 
+def prefill_sublayer(x, sub: Sublayer, cfg: ModelConfig, positions, max_len: int):
+    """One sub-layer over the prompt -> (x, its cache entry)."""
+    b, s, _ = x.shape
+    y, state = _mixer_seq(rms_norm(x, sub.ln1, cfg.norm_eps), sub, cfg, positions)
+    x = x + y
+    if sub.kind == "attn":
+        for name in ("k", "v"):
+            full = torch.zeros((b, max_len, *state[name].shape[2:]), dtype=state[name].dtype,
+                               device=x.device)
+            full[:, :s] = state[name]
+            state[name] = full
+    y, _, more = _ffn_seq(rms_norm(x, sub.ln2, cfg.norm_eps), sub, cfg)
+    state.update(more)
+    return x + y, state
+
+
 @torch.inference_mode()
 def prefill(model: Transformer, batch: dict, max_len: int):
-    """Run the prompt, return (last-position logits (B, Vpad), cache)."""
+    """Run the prompt (with ``vision`` / ``frames`` where the family takes
+    them), return (last-position logits (B, Vpad), cache)."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
     b, s, _ = x.shape
     if s > max_len:
-        raise ValueError(f"a prompt of {s} tokens does not fit a cache of {max_len}")
-    blocks = []
-    for block in model.blocks:
+        raise ValueError(f"a prompt of {s} positions does not fit a cache of {max_len}")
+    memory = _encoder_forward(model, batch["frames"]) if cfg.n_enc_layers else None
+    blocks, xattn = [], []
+    for i, block in enumerate(model.blocks):
         caches = {}
         for j in range(cfg.block_period):
-            sub = block[f"sub{j}"]
-            h = rms_norm(x, sub.ln1, cfg.norm_eps)
-            q, k, v = _attn_qkv(h, sub.attn, cfg, positions)
-            o = attention(q, k, v, causal=True, k_chunk=cfg.attn_chunk_k)
-            x = x + o.reshape(b, s, -1) @ sub.attn["wo"]
-            kc = torch.zeros((b, max_len, *k.shape[2:]), dtype=k.dtype, device=k.device)
-            vc = torch.zeros_like(kc)
-            kc[:, :s] = k
-            vc[:, :s] = v
-            caches[f"sub{j}"] = {"k": kc, "v": vc}
-            h2 = rms_norm(x, sub.ln2, cfg.norm_eps)
-            x = x + ffn(h2, sub.ffn, cfg.ffn_act)
+            x, caches[f"sub{j}"] = prefill_sublayer(x, block[f"sub{j}"], cfg, positions,
+                                                    max_len)
         blocks.append(caches)
+        if memory is not None:
+            xp = model.xattn_of_block(i)
+            k, v = _cross_kv(memory, xp.xattn, cfg)
+            x = x + _cross_attn(rms_norm(x, xp.lnx, cfg.norm_eps), xp.xattn, cfg, k, v)
+            xattn.append({"k": k, "v": v})
 
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = x[:, -1] @ model.unembedding()
     cache = {"pos": torch.full((b,), s, dtype=torch.int32, device=x.device), "blocks": blocks}
+    if memory is not None:
+        cache["xattn"] = xattn
     return logits, cache
 
 
 # ------------------------------------------------------------- decode step
 
+def decode_sublayer(x, sub: Sublayer, c: dict, cfg: ModelConfig, positions, at, kv_len):
+    """One sub-layer for one token: x (B, 1, d), its cache entry ``c``
+    (updated in place), the K/V write index ``at`` (1,) and the valid
+    lengths ``kv_len`` (B,) -> x."""
+    b = x.shape[0]
+    h = rms_norm(x, sub.ln1, cfg.norm_eps)
+    if sub.kind == "attn":
+        q, k, v = _attn_qkv(h, sub.attn, cfg, positions)
+        c["k"].index_copy_(1, at, k)
+        c["v"].index_copy_(1, at, v)
+        o = decode_attention(q, c["k"], c["v"], kv_len)
+        x = x + o.reshape(b, 1, -1) @ sub.attn["wo"]
+    elif sub.kind == "mamba":
+        y, (c["conv"], c["h"]) = mamba.mamba_decode(h, sub.mamba, cfg, (c["conv"], c["h"]))
+        x = x + y
+    else:
+        y, (c["xt"], c["s"]) = rwkv6.rwkv_decode(h, sub.tmix, cfg, (c["xt"], c["s"]))
+        x = x + y
+    h2 = rms_norm(x, sub.ln2, cfg.norm_eps)
+    if sub.ffn_kind == "cmix":
+        mu = sub.cmix["mu"]
+        xm = h2[:, 0] * mu + c["xc"] * (1 - mu)
+        y = torch.square(F.relu(xm @ sub.cmix["wk"])) @ sub.cmix["wv"]
+        c["xc"] = h2[:, 0]
+        return x + y[:, None]
+    return x + _ffn_seq(h2, sub, cfg)[0]
+
+
+def _attn_capacity(cfg: ModelConfig, cache: dict):
+    """The self-attention cache's capacity M, or None without attention."""
+    for j in range(cfg.block_period):
+        if cfg.layer_kind(j) == "attn":
+            return cache["blocks"][0][f"sub{j}"]["k"].shape[1]
+    return None
+
+
 @torch.inference_mode()
 def decode_step(model: Transformer, cache: dict, tokens):
-    """One token for every sequence. tokens: (B, 1) -> (logits, new cache)."""
+    """One token for every sequence. tokens: (B, 1) -> (logits, the new
+    cache: ``cache``'s states, updated in place, and ``pos + 1``)."""
     cfg = model.cfg
-    x, _ = embed_inputs(model, {"tokens": tokens})             # (B, 1, d)
+    x = model.embed[torch.as_tensor(tokens, device=model.device).long()]  # (B, 1, d)
     b = x.shape[0]
     pos = cache["pos"]                                          # (B,)
     positions = pos[:, None]
+    max_len = _attn_capacity(cfg, cache)
+    if cfg.family == "audio":
+        # the reference gathers row pos of a table of M rows, which JAX
+        # clamps into the table; torch would raise, so clamp here
+        m = max_len if max_len is not None else 4096
+        table = _sin_pos_on(m, cfg.d_model, x.device).to(x.dtype)
+        x = x + table[pos.long().clamp(0, m - 1)][:, None]
     # every row writes at pos[0], the start clamped into the cache, with no
     # trip to the host: the index stays a device tensor
-    max_len = cache["blocks"][0]["sub0"]["k"].shape[1]
-    at = pos[:1].long().clamp(0, max_len - 1)
+    at = pos[:1].long().clamp(0, max_len - 1) if max_len is not None else None
     kv_len = pos + 1
-    for block, bc in zip(model.blocks, cache["blocks"]):
+    x_len = None
+    if "xattn" in cache:
+        x_len = torch.full((b,), cache["xattn"][0]["k"].shape[1], dtype=torch.int32,
+                           device=x.device)
+    for i, (block, bc) in enumerate(zip(model.blocks, cache["blocks"])):
         for j in range(cfg.block_period):
-            sub, c = block[f"sub{j}"], bc[f"sub{j}"]
-            h = rms_norm(x, sub.ln1, cfg.norm_eps)
-            q, k, v = _attn_qkv(h, sub.attn, cfg, positions)
-            c["k"].index_copy_(1, at, k)
-            c["v"].index_copy_(1, at, v)
-            o = decode_attention(q, c["k"], c["v"], kv_len)
-            x = x + o.reshape(b, 1, -1) @ sub.attn["wo"]
-            h2 = rms_norm(x, sub.ln2, cfg.norm_eps)
-            x = x + ffn(h2, sub.ffn, cfg.ffn_act)
+            x = decode_sublayer(x, block[f"sub{j}"], bc[f"sub{j}"], cfg, positions, at, kv_len)
+        if x_len is not None:
+            xp, xc = model.xattn_of_block(i), cache["xattn"][i]
+            h = rms_norm(x, xp.lnx, cfg.norm_eps)
+            q = (h @ xp.xattn["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+            o = decode_attention(q, xc["k"], xc["v"], x_len)
+            x = x + o.reshape(b, 1, -1) @ xp.xattn["wo"]
 
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = x[:, -1] @ model.unembedding()
-    return logits, {"pos": pos + 1, "blocks": cache["blocks"]}
+    return logits, dict(cache, pos=pos + 1)

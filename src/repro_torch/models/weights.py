@@ -4,9 +4,11 @@
 The tree is nested dicts of numpy arrays (``jax.tree.map(np.asarray,
 params)`` of the reference's tree). Its ``blocks`` are stacked on a
 leading axis when ``cfg.scan_layers`` is set, and a list of per-block
-trees otherwise. A bf16 array arrives with numpy's ``bfloat16`` extension
-dtype, which ``torch.from_numpy`` refuses: it goes through ``float32``
-(lossless) and is cast back to bf16. ``to_reference`` gives bf16
+trees otherwise; Whisper's ``encoder`` and ``xattn`` are stacked
+whatever ``cfg.scan_layers`` is (the reference ``vmap``s them). A bf16
+array arrives with numpy's ``bfloat16`` extension dtype, which
+``torch.from_numpy`` refuses: it goes through ``float32`` (lossless) and
+is cast back to bf16. ``to_reference`` gives bf16
 parameters back as ``float32`` arrays, for the same reason.
 """
 
@@ -40,14 +42,23 @@ def _leaf(tree, path: list[str], name: str):
     return node
 
 
+# the module lists of the model, each a stacked subtree of the reference's
+_STACKS = ("blocks", "encoder", "xattn")
+
+
+def _stacked(cfg: ModelConfig, group: str) -> bool:
+    return group != "blocks" or cfg.scan_layers
+
+
 def _paths(model: Transformer):
-    """(parameter, path in the reference tree, block index or None)."""
+    """(parameter, name, path in the reference tree, module list or None,
+    index in it)."""
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            yield p, name, ["blocks"] + parts[2:], int(parts[1])
+        if parts[0] in _STACKS:
+            yield p, name, [parts[0]] + parts[2:], parts[0], int(parts[1])
         else:
-            yield p, name, parts, None
+            yield p, name, parts, None, None
 
 
 @torch.no_grad()
@@ -58,19 +69,20 @@ def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
     ``ValueError`` for a shape that differs, a stacked leaf's leading axis
     or a ``blocks`` list's length included."""
     model = Transformer(cfg, device)
-    n_blocks = len(model.blocks)
     blocks = tree.get("blocks")
-    if not cfg.scan_layers and isinstance(blocks, list) and len(blocks) != n_blocks:
-        raise ValueError(f"the reference tree has {len(blocks)} blocks, the model {n_blocks}")
+    if not cfg.scan_layers and isinstance(blocks, list) and len(blocks) != len(model.blocks):
+        raise ValueError(f"the reference tree has {len(blocks)} blocks, the model "
+                         f"{len(model.blocks)}")
     used = set()
-    for p, name, path, i in _paths(model):
-        if i is None:
+    for p, name, path, group, i in _paths(model):
+        if group is None:
             a = _leaf(tree, path, name)
-        elif cfg.scan_layers:
+        elif _stacked(cfg, group):
             a = np.asarray(_leaf(tree, path, name))
-            if a.shape[:1] != (n_blocks,):
-                raise ValueError(f"{name}: the reference stacks {a.shape[:1]} blocks, the "
-                                 f"model has {n_blocks}")
+            n = len(getattr(model, group))
+            if a.shape[:1] != (n,):
+                raise ValueError(f"{name}: the reference stacks {a.shape[:1]} {group}, the "
+                                 f"model has {n}")
             a = a[i]
         else:
             a = _leaf(blocks[i], path[1:], name)
@@ -103,28 +115,26 @@ def to_reference(model: Transformer) -> dict:
     cfg = model.cfg
     tree: dict = {}
     stacked: dict[str, list] = {}
-    n_blocks = len(model.blocks)
-    per_block: list[dict] = [{} for _ in range(n_blocks)]
-    for p, _, path, i in _paths(model):
-        if i is None:
+    per_block: list[dict] = [{} for _ in model.blocks]
+    for p, _, path, group, i in _paths(model):
+        if group is None:
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = _array(p)
-        elif cfg.scan_layers:
-            stacked.setdefault("/".join(path), [None] * n_blocks)[i] = _array(p)
+        elif _stacked(cfg, group):
+            stacked.setdefault("/".join(path), [None] * len(getattr(model, group)))[i] = _array(p)
         else:
             node = per_block[i]
             for key in path[1:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = _array(p)
-    if cfg.scan_layers:
-        for key, arrays in stacked.items():
-            path = key.split("/")
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = np.stack(arrays)
-    else:
+    for key, arrays in stacked.items():
+        path = key.split("/")
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack(arrays)
+    if not cfg.scan_layers:
         tree["blocks"] = per_block
     return tree

@@ -47,6 +47,21 @@ from repro_torch.data.loggen import DATASETS, generate_lines
 lines = list(generate_lines("HDFS", 400, seed=42))
 blob = compress(lines, LogzipConfig(format=DATASETS["HDFS"]["format"], device="cpu"))
 assert decompress(blob) == lines
+# every family of the LM zoo served on the CPU, reduced
+import torch
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import decode_step, init_params, prefill
+for arch in ARCH_IDS:
+    cfg = get_config(arch).reduced(dtype="float32")
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    if cfg.n_patches:
+        batch["vision"] = torch.zeros((1, cfg.n_patches, cfg.d_model))
+    if cfg.n_enc_layers:
+        batch["frames"] = torch.zeros((1, cfg.n_frames, cfg.d_model))
+    logits, cache = prefill(model, batch, 10 + cfg.n_patches)
+    logits, cache = decode_step(model, cache, logits.argmax(-1)[:, None])
+    assert torch.isfinite(logits).all(), arch
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 print("OK", len(names), len(blob))
@@ -117,7 +132,26 @@ def _entry_points():
         "Transformer": lambda: models.Transformer(_small_lm()),
         "init_cache": lambda: models.init_cache(_small_lm(), 1, 4),
         "from_reference": lambda: weights.from_reference(_small_lm(), {}),
+        # the other families: MoE, the mamba hybrid, RWKV6, the VLM, audio
+        **{f"{entry}[{arch}]": _family_entry(entry, arch) for arch in FAMILIES
+           for entry in ("init_params", "init_cache", "from_reference")},
     }
+
+
+FAMILIES = ["dbrx-132b", "jamba-v0.1-52b", "rwkv6-7b", "internvl2-2b", "whisper-base"]
+
+
+def _family_entry(entry, arch):
+    def call():
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch).reduced()
+        if entry == "init_params":
+            return models.init_params(cfg)
+        if entry == "init_cache":
+            return models.init_cache(cfg, 1, 4)
+        return weights.from_reference(cfg, {})
+    return call
 
 
 def _small_lm():

@@ -867,3 +867,21 @@ def test_device_is_not_on_the_wire_and_not_in_the_archive(sock_root):
         assert "device" not in rd.footer and rd.footer["level"] == 1
     finally:
         rd.close()
+
+
+@pytest.mark.parametrize("tcp", [False, True])
+def test_shutdown_ends_the_accept_thread(sock_root, tcp):
+    """``shutdown`` leaves no thread behind: the accept loop, blocked in
+    ``accept()``, returns (closing the listener alone does not wake it on
+    Linux, so each daemon shut down kept one thread for good)."""
+    address = ("127.0.0.1", 0) if tcp else None
+    daemon = service.IngestDaemon(sock_root, address, device="cpu").start()
+    thread = daemon._accept_thread
+    assert thread.is_alive()
+    with protocol.IngestClient(daemon.address, "t", cfg={"format": FMT}) as c:
+        c.send(_line(0))
+        c.wait_ack(0, timeout=WAIT)
+    assert daemon.shutdown(timeout=WAIT)
+    thread.join(WAIT)
+    assert not thread.is_alive()
+    assert not [t for t in threading.enumerate() if t is thread]

@@ -1,7 +1,8 @@
-"""The port's dense LM serving path against the JAX package's.
+"""The port's dense LM serving path against the JAX package's (the other
+families: ``tests/test_torch_families.py``).
 
-``repro_torch.models`` holds the dense family of ``repro.models``: the
-layers, the ``Transformer`` (``init_params``, ``forward``), the KV-cache
+``repro_torch.models`` holds every family of ``repro.models``; here the
+dense one: the layers, the ``Transformer`` (``init_params``, ``forward``), the KV-cache
 serving (``init_cache``, ``prefill``, ``decode_step``) and
 ``weights.from_reference`` / ``to_reference``. The weights of each case
 are drawn by the reference's ``init_params`` and carried across, so both
@@ -29,7 +30,6 @@ from repro import models as rmodels
 from repro.models import layers as rlayers
 from repro_torch import configs
 from repro_torch.models import (
-    Transformer,
     decode_step,
     forward,
     init_cache,
@@ -42,7 +42,6 @@ from repro_torch.models.weights import from_reference, to_reference
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ["qwen3-1.7b", "qwen1.5-0.5b", "qwen2-7b", "qwen1.5-4b"]
-OTHER = [a for a in rconfigs.ARCH_IDS if a not in DENSE]
 FP32_REL = 2e-5
 BF16_REL = 0.05
 
@@ -375,17 +374,6 @@ def test_init_cache_layout():
     assert k.shape == (3, 20, cfg.n_kv_heads, cfg.head_dim) and k.dtype == torch.bfloat16
     rc = rmodels.init_cache(rconfigs.get_config("qwen2-7b").reduced(), 3, 20)
     assert rc["blocks"]["sub0"]["k"].shape[1:] == tuple(k.shape)
-
-
-@pytest.mark.parametrize("arch", OTHER)
-@pytest.mark.parametrize("entry", ["init_params", "Transformer", "init_cache"])
-def test_other_families_raise(arch, entry):
-    cfg = configs.get_config(arch).reduced()
-    calls = {"init_params": lambda: init_params(cfg, device="cpu"),
-             "Transformer": lambda: Transformer(cfg, device="cpu"),
-             "init_cache": lambda: init_cache(cfg, 1, 4, device="cpu")}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5b"):
-        calls[entry]()
 
 
 def test_serve_cli_on_the_cpu():
