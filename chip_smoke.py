@@ -115,7 +115,18 @@ Phases, each of which raises on failure:
    prefix) and whisper-base (6 + 6, 1500 frames): for each the cache
    against ``forward`` in fp32, a full-width CPU twin, a timed bf16 serve
    (the decode bound, and the experts a MoE step routes to), then
-   ``launch.serve`` as six processes at once, one for each non-dense arch.
+   ``launch.serve`` as six processes at once, one for each non-dense arch;
+13. training ``qwen1.5-0.5b`` (the training launcher's default arch) at
+   full width: ``launch.train.main`` in this process for 10 steps of (8,
+   256) after its 40,000-line shard write on the card
+   (``wildcard_match_first`` and ``colcodec_transform`` launched), and the
+   launcher as a process sent SIGTERM after its first step, whose
+   preemption checkpoint is resumed to the same step: the two final
+   checkpoints equal in the data cursor and the step, the parameters
+   within AdamW's reach; the preemption checkpoint in the reference's
+   layout; one train step of a 2-layer fp32 twin on the card against the
+   CPU; ms a step, tokens/s, peak memory, the checkpoint's bytes and
+   seconds, the FLOP bound.
    Then print the ``kernels`` line and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
@@ -203,7 +214,13 @@ FAMILIES = {
 # part of it fits the card that dbrx's 2 layers do not already cover)
 FAMILY_CLI = ["dbrx-132b", "grok-1-314b", "jamba-v0.1-52b", "internvl2-2b", "whisper-base",
               "rwkv6-7b"]
+# phase 13: training the launcher's default arch at full width
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_STEPS = 10    # N: run A's steps, and run B's in all
+TRAIN_BATCH, TRAIN_SEQ = 8, 256   # the launcher's defaults
+TRAIN_TWIN_REL = 1e-4  # (b): fp32 on the card against the CPU, of the largest |value|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
 # one operation per lane per clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -1889,6 +1906,370 @@ def serving_phase(np, torch, profile, activity, card: str) -> dict:
     return stats
 
 
+def _flat_leaves(tree, prefix=""):
+    """A checkpoint tree (nested dicts) -> {"a/b/c": leaf}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _train_argv(workdir: Path) -> list[str]:
+    """Phase 13's launcher flags: the default arch at full width on the card,
+    no checkpoint before the end but a preemption's."""
+    return ["--device", "cuda", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--workdir", str(workdir),
+            "--ckpt-every", str(TRAIN_STEPS + 1)]
+
+
+def _train_process(workdir: Path):
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                             *_train_argv(workdir)], cwd=str(ROOT),
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def training_phase(np, torch, profile, activity, card: str) -> dict:
+    """Phase 13: ``TRAIN_ARCH`` trained at full width on the card by the
+    port's launcher -> the phase's figures.
+
+    (a) Run A: ``launch.train.main`` in this process, ``TRAIN_STEPS`` steps
+    of (8, 256) uninterrupted, after its 40,000-line shard write on the card
+    (``wildcard_match_first`` and ``colcodec_transform`` must launch; the
+    counts set to 0 just before). Run B, a process on a copy of A's shards:
+    SIGTERM after its first step line, a preemption checkpoint at step
+    k + 1 < N and exit 0, relaunched to N. The final checkpoints: the data
+    cursor and ``opt/step`` equal; every parameter within twice the most
+    AdamW can move it over the run, 2 sum(lr_t) (1 + wd max|p|), plus one
+    bf16 ulp of the leaf's largest |value| (the embedding's backward
+    accumulates with atomics, so the two runs' gradients may differ in
+    their last bits, and an element whose gradient is that small can take
+    an AdamW step of the other sign). B's preemption checkpoint, which the
+    relaunch reads with ``load_checkpoint``, has the leaf names, shapes and
+    dtypes of the reference's tree of the model (``weights.to_reference``,
+    the moments fp32, ``opt/step`` int32). (b) The arch cut to 2 layers at fp32, one
+    init carried to the CPU: the gradients of one batch, then one
+    ``make_train_step`` step (lr 6e-4), on the card and on the CPU: each
+    within ``TRAIN_TWIN_REL`` of its leaf's largest |value|, the updated
+    parameters too but where the CPU's gradient is below 1e-4 of the
+    largest (an AdamW first step is lr * sign(g) there: within 2 lr).
+    (c) ms a step (median after the first), tokens/s, peak memory, the
+    checkpoint's bytes and seconds, the FLOP bound (8 N_params tokens:
+    forward, remat forward, backward, over 989 TFLOP/s); a step split into
+    its gradients and its update, and two steps under ``torch.profiler``
+    (the card's busy time and idle share)."""
+    import signal
+    import threading
+
+    from repro_torch.checkpoint.ckpt import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenBatcher
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import Transformer, init_params, loss_fn
+    from repro_torch.models.weights import to_reference
+    from repro_torch.optim.adamw import (
+        AdamWHyper,
+        adamw_init,
+        adamw_update,
+        clip_by_global_norm,
+    )
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.padded_vocab,
+             cfg.qkv_bias, cfg.tie_embeddings, cfg.remat, cfg.dtype)
+    if shape != (24, 1024, 16, 64, 2816, 152_064, True, False, True, "bfloat16"):
+        raise AssertionError(f"{TRAIN_ARCH} is not the full-width config: {shape}")
+    empty = Transformer(cfg, dev)
+    n_params = sum(p.numel() for p in empty.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in empty.parameters())
+    del empty
+    ckpt_bytes = param_bytes + 8 * n_params  # the parameters and two fp32 moments
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = shutil.disk_usage(ROOT / "build").free
+    # at most two checkpoints on disk at once: run A's is read and deleted first
+    if free < 2 * ckpt_bytes + 2e9:
+        raise RuntimeError(f"phase 13 needs {2 * ckpt_bytes + 2e9:.0f} bytes of disk, "
+                           f"{free} are free")
+    work = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "build"))
+    stats = {"params": n_params, "ckpt_bytes_expected": ckpt_bytes}
+    try:
+        # (a) run A, in this process, uninterrupted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ran = train_main(_train_argv(work / "a"))
+        torch.cuda.synchronize()
+        a_seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not (counts["wildcard_match_first"] > 0 and counts["colcodec_transform"] > 0):
+            raise AssertionError(f"run A's shard write launched no kernel: {counts}")
+        if not (len(ran["losses"]) == TRAIN_STEPS and all(np.isfinite(ran["losses"]))):
+            raise AssertionError(f"run A's losses: {ran['losses']}")
+        step_ms = float(np.median(ran["step_seconds"][1:])) * 1e3
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        final_a = work / "a" / "ckpt" / f"step-{TRAIN_STEPS:08d}"
+        written = sum(f.stat().st_size for f in final_a.iterdir())
+        bound_ms = 8 * n_params * tokens / BF16_FLOP_PER_S * 1e3
+        stats.update(launches=counts, run_a_seconds=a_seconds, losses_a=ran["losses"],
+                     step_ms=step_ms, first_step_ms=ran["step_seconds"][0] * 1e3,
+                     tokens_per_s=tokens / step_ms * 1e3, peak_bytes=peak,
+                     ckpt_bytes=written, ckpt_seconds=ran["ckpt_seconds"],
+                     flop_bound_ms=bound_ms)
+        log(f"[train] (a) run A: {TRAIN_ARCH} full width ({n_params} parameters, bf16), "
+            f"{TRAIN_STEPS} steps of ({TRAIN_BATCH}, {TRAIN_SEQ}) through launch.train.main in "
+            f"{a_seconds:.1f} s with its 40,000-line shard write; launches "
+            f"{json.dumps(counts)}; losses {[round(x, 4) for x in ran['losses']]}; on {card}")
+        log(f"[train] (c) {step_ms:.3f} ms a step (median of steps 2-{TRAIN_STEPS}; the first "
+            f"{ran['step_seconds'][0] * 1e3:.1f} ms), {tokens / step_ms * 1e3:.1f} tokens/s; "
+            f"FLOP bound 8 x {n_params} x {tokens} over 989 TFLOP/s = {bound_ms:.4f} ms, the "
+            f"step at {step_ms / bound_ms:.2f}x it; max_memory_allocated {peak} bytes; the "
+            f"final checkpoint {written} bytes written in {ran['ckpt_seconds']:.3f} s "
+            f"({written / ran['ckpt_seconds'] / 1e9:.3f} GB/s, the device-to-host copy "
+            f"included); on {card}")
+        # where a step's time goes: the gradients against the update, and the
+        # card's busy share of two steps under the profiler
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        opt = adamw_init(model)
+        hyper = AdamWHyper(lr=6e-4)
+        step = make_train_step(cfg, hyper)
+        batch = TokenBatcher(str(work / "a" / "shards"), device=dev).next_batch(TRAIN_BATCH,
+                                                                              TRAIN_SEQ)
+        model, opt, _ = step(model, opt, batch)  # warm up
+        torch.cuda.synchronize()
+        params = dict(model.named_parameters())
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(loss_fn(model, batch)[0], list(params.values()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        clipped, _ = clip_by_global_norm(dict(zip(params, grads)), hyper.grad_clip)
+        opt = adamw_update(clipped, opt, model, hyper)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads, clipped
+        with profile(activities=[activity.CUDA]) as prof:
+            t3 = time.perf_counter()
+            for _ in range(2):
+                model, opt, _ = step(model, opt, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t3) * 1e3 / 2
+        busy = device_us(prof)
+        busy_ms = sum(us for _, us in busy.values()) / 1e3 / 2
+        n_ops = sum(c for c, _ in busy.values()) // 2
+        top = sorted(busy.items(), key=lambda kv: -kv[1][1])[:5]
+        stats.update(grad_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3,
+                     profiled_step_ms=wall_ms, device_busy_ms_a_step=busy_ms,
+                     idle_share=1 - busy_ms / wall_ms, device_ops_a_step=n_ops)
+        log(f"[train] (c) a step's parts, synchronised: loss and gradients {(t1 - t0) * 1e3:.3f} "
+            f"ms, clipping and AdamW over {len(params)} leaves {(t2 - t1) * 1e3:.3f} ms; two steps "
+            f"under torch.profiler: {wall_ms:.3f} ms a step, the device busy {busy_ms:.3f} ms of "
+            f"it (idle share {1 - busy_ms / wall_ms:.4f}, {n_ops} device ops a step); the "
+            f"busiest: " + "; ".join(f"{name[:60]} x{c // 2} {us / 2e3:.3f} ms"
+                                     for name, (c, us) in top) + f"; on {card}")
+        del model, opt, params, batch, prof
+        torch.cuda.empty_cache()
+
+        # run B: a process preempted by SIGTERM after its first step line, then
+        # resumed; run A's final checkpoint is read meanwhile, then deleted
+        shutil.copytree(work / "a" / "shards", work / "b" / "shards")
+        got_a, got_b = {}, {}
+
+        def read(ckpt: Path, into: dict):
+            tree, into["extra"], into["step"] = load_checkpoint(str(ckpt), device="cpu")
+            into["leaves"] = _flat_leaves(tree)
+
+        reader = threading.Thread(target=read, args=(work / "a" / "ckpt", got_a))
+        t0 = time.perf_counter()
+        proc = _train_process(work / "b")
+        reader.start()
+        try:
+            first = proc.stdout.readline()
+            if not first.startswith("step     0"):
+                raise AssertionError(f"run B printed {first!r} first: {proc.stderr.read()[-2000:]}")
+            proc.send_signal(signal.SIGTERM)
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        pre = [ln for ln in out.splitlines() if ln.startswith("preemption checkpoint at step ")]
+        if proc.returncode != 0 or len(pre) != 1:
+            raise AssertionError(f"run B's preemption: exit {proc.returncode}, {out[-1000:]} "
+                                 f"{err[-2000:]}")
+        k1 = int(pre[0].split()[4])
+        if not 0 < k1 < TRAIN_STEPS:
+            raise AssertionError(f"run B's preemption checkpoint is at step {k1}")
+        b1_seconds = time.perf_counter() - t0
+        reader.join()
+        if "leaves" not in got_a:
+            raise AssertionError("run A's final checkpoint could not be read")
+        shutil.rmtree(work / "a" / "ckpt")
+        t0 = time.perf_counter()
+        proc = _train_process(work / "b")
+        out2, err2 = proc.communicate(timeout=300)
+        if proc.returncode != 0 or f"resumed from step {k1} (sample-exact)" not in out2:
+            raise AssertionError(f"run B's resume: exit {proc.returncode}, {out2[-1000:]} "
+                                 f"{err2[-2000:]}")
+        b2_seconds = time.perf_counter() - t0
+        stats.update(preempted_at=k1, run_b_seconds=[b1_seconds, b2_seconds])
+        log(f"[train] (a) run B: SIGTERM after its first step line, preemption checkpoint at "
+            f"step {k1}, exit 0 ({b1_seconds:.1f} s); relaunched, resumed from step {k1} to "
+            f"{TRAIN_STEPS} ({b2_seconds:.1f} s); on {card}")
+        # run B's final checkpoint is read while (b) runs
+        reader = threading.Thread(target=read, args=(work / "b" / "ckpt", got_b))
+        reader.start()
+
+        # B's preemption checkpoint, which the relaunch read with load_checkpoint
+        # (its leaves' shapes and dtypes held to the model's): the reference's layout
+        with open(work / "b" / "ckpt" / f"step-{k1:08d}" / "manifest.json") as f:
+            manifest = json.load(f)["leaves"]
+        model = Transformer(cfg, dev)  # the shapes and dtypes; no values needed
+        kind = {name.rsplit(".", 1)[-1]: str(p.dtype).replace("torch.", "")
+                for name, p in model.named_parameters()}
+        ref = _flat_leaves(to_reference(model))
+        del model
+        want = {}
+        for path, a in ref.items():
+            want[f"params/{path}"] = [list(a.shape), kind[path.rsplit("/", 1)[-1]]]
+            want[f"opt/mu/{path}"] = want[f"opt/nu/{path}"] = [list(a.shape), "float32"]
+        want["opt/step"] = [[], "int32"]
+        got = {k: [v["shape"], v["dtype"]] for k, v in manifest.items()}
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+            raise AssertionError(f"run B's preemption checkpoint is not in the reference's "
+                                 f"layout: {bad[:8]}")
+        log(f"[train] (a) run B's preemption checkpoint (step {k1}): {len(manifest)} leaves "
+            f"with the names, shapes and dtypes of the reference's tree of the model "
+            f"(bf16 parameters, fp32 norms and moments, opt/step int32); the relaunch read it "
+            f"with load_checkpoint")
+
+        stats.update(_train_twin(np, torch, cfg, card))  # (b)
+
+        reader.join()
+        if "leaves" not in got_b:
+            raise AssertionError("run B's final checkpoint could not be read")
+        stats.update(_compare_runs(torch, got_a, got_b, hyper, card))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[train] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return stats
+
+
+def _compare_runs(torch, got_a: dict, got_b: dict, hyper, card: str) -> dict:
+    """Phase 13 (a): run A's final checkpoint against run B's: the data
+    cursor and the step exact, each parameter within twice the most AdamW
+    can move it over the run, plus a bf16 ulp of its leaf's largest
+    |value|."""
+    (la, ea, sa), (lb, eb, sb) = ((g["leaves"], g["extra"], g["step"]) for g in (got_a, got_b))
+    if not (sa == sb == TRAIN_STEPS and ea == eb
+            and int(la["opt/step"]) == int(lb["opt/step"]) == TRAIN_STEPS):
+        raise AssertionError(f"runs A and B end apart: steps {sa}, {sb}, data {ea} / {eb}")
+    if la.keys() != lb.keys():
+        raise AssertionError("runs A and B saved different leaves")
+    lr_sum = sum(hyper.lr * t / 20 for t in range(TRAIN_STEPS))  # cosine_schedule's warmup
+    worst, differ, identical = 0.0, 0, True
+    for k in la:
+        a, b = la[k], lb[k]
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{k}: {a.dtype} in run A, {b.dtype} in run B")
+        if torch.equal(a, b):
+            continue
+        identical = False
+        if k.startswith("params/"):
+            d = float((a.float() - b.float()).abs().max())
+            top = float(a.float().abs().max())
+            tol = 2 * lr_sum * (1 + hyper.weight_decay * top) + top * 2.0 ** -7
+            if d > tol:
+                raise AssertionError(f"{k}: runs A and B differ by {d} (tolerance {tol})")
+            worst = max(worst, d / tol)
+            differ += 1
+    mom = max(float((la[k].float() - lb[k].float()).abs().max()
+                    / max(float(la[k].float().abs().max()), 1e-30))
+              for k in la if k.startswith("opt/mu/") or k.startswith("opt/nu/"))
+    data = ea["data"]
+    cursor = (data["epoch"], data["shard_pos"], data["line_pos"], len(data["carry"]))
+    log(f"[train] (a) final checkpoints of A and B: data cursor (epoch, shard, line, carry) "
+        f"{cursor} and opt/step {TRAIN_STEPS} equal; bit-identical {identical}; {differ} "
+        f"parameter leaves differ, the worst at {worst:.3e} of its tolerance (2 sum(lr) (1 + wd "
+        f"max|p|) + a bf16 ulp of max|p|, sum(lr) {lr_sum:.3e}); the moments' largest "
+        f"difference {mom:.3e} of their leaf's max; on {card}")
+    return {"a_b_bit_identical": identical, "a_b_param_leaves_differing": differ,
+            "a_b_worst_share_of_tolerance": worst, "a_b_moment_rel": mom}
+
+
+def _train_twin(np, torch, cfg, card: str) -> dict:
+    """Phase 13 (b): the arch cut to 2 layers at fp32, one init on the card
+    carried to the CPU: the gradients of one batch and one
+    ``make_train_step`` step (lr 6e-4) on both, held within
+    ``TRAIN_TWIN_REL`` of each leaf's largest |value|, the updated
+    parameters too but where the CPU's gradient is below 1e-4 of the
+    largest (an AdamW first step is lr * sign(g) there: within 2 lr)."""
+    import dataclasses
+
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.weights import from_reference, to_reference
+    from repro_torch.optim.adamw import AdamWHyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: fp32 parity would not hold")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    on_card = init_params(cfg2, torch.Generator(device=dev).manual_seed(0), device=dev)
+    on_host = from_reference(cfg2, to_reference(on_card), device="cpu")
+    rng = np.random.default_rng(13)
+    toks = rng.integers(3, 259, (2, 65)).astype(np.int32)  # byte tokens, as the launcher's
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    hyper = AdamWHyper(lr=6e-4)
+    res = {}
+    for label, model in (("cuda", on_card), ("cpu", on_host)):
+        tb = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss_fn(model, tb)[0], list(params.values()))
+        grads = {k: g.cpu() for k, g in zip(params, grads)}
+        model, opt, m = make_train_step(cfg2, hyper)(model, adamw_init(model), tb)
+        res[label] = (grads, {k: p.detach().cpu() for k, p in model.named_parameters()},
+                      float(m["loss"]), float(m["grad_norm"]))
+    del on_card, on_host, model, opt
+    (gg, pg, lg, ng), (gc, pc, lc, nc) = res["cuda"], res["cpu"]
+    if not (abs(lg - lc) <= TRAIN_TWIN_REL * abs(lc) and abs(ng - nc) <= TRAIN_TWIN_REL * nc):
+        raise AssertionError(f"(b) loss {lg} / {lc}, grad norm {ng} / {nc} (card / CPU)")
+    top_g = max(float(g.abs().max()) for g in gc.values())
+    g_err = p_err = 0.0
+    flips = 0
+    for k in gc:
+        scale = float(gc[k].abs().max())
+        e = float((gg[k] - gc[k]).abs().max())
+        if e > TRAIN_TWIN_REL * scale + 1e-30:
+            raise AssertionError(f"(b) gradient of {k}: card and CPU differ by {e} "
+                                 f"(max {scale}, tolerance {TRAIN_TWIN_REL} of it)")
+        g_err = max(g_err, e / max(scale, 1e-30))
+        diff = (pg[k] - pc[k]).abs()
+        small = gc[k].abs() < 1e-4 * top_g
+        ptop = float(pc[k].abs().max())
+        e = float(diff[~small].max()) if bool((~small).any()) else 0.0
+        e_small = float(diff[small].max()) if bool(small.any()) else 0.0
+        if e > TRAIN_TWIN_REL * ptop or e_small > 2 * hyper.lr + TRAIN_TWIN_REL * ptop:
+            raise AssertionError(f"(b) updated {k}: card and CPU differ by {e} (max {ptop}), "
+                                 f"{e_small} where |g| < 1e-4 of the largest")
+        p_err = max(p_err, e / max(ptop, 1e-30))
+        flips += int((diff[small] > TRAIN_TWIN_REL * ptop).sum())
+    log(f"[train] (b) 2 layers at full width, fp32, card against CPU, one batch of (2, 64): "
+        f"loss {lg:.6f} / {lc:.6f}, grad norm {ng:.6f} / {nc:.6f}; every gradient within "
+        f"{g_err:.3e} of its leaf's max (tolerance {TRAIN_TWIN_REL}); after one "
+        f"make_train_step step (lr 6e-4) the parameters within {p_err:.3e} of their leaf's "
+        f"max where |g| >= 1e-4 of the largest, {flips} smaller-gradient elements off by more "
+        f"(each within 2 lr); {time.perf_counter() - t0:.1f} s on {card}")
+    return {"twin_loss": [lg, lc], "twin_grad_norm": [ng, nc], "twin_grad_rel": g_err,
+            "twin_param_rel": p_err, "twin_small_grad_flips": flips}
+
+
 def decode_bytes(cfg, model, bsz: int, kv_len: float) -> float:
     """The bytes one decode step of ``bsz`` rows must move, at a mean
     self-attention length ``kv_len``: every weight but the embedding table,
@@ -2709,6 +3090,10 @@ def main() -> int:
     # -- 12: the LM zoo's other families at full width
     f_stats = families_phase(np, torch, card)
     log(f"[family] {json.dumps(f_stats)}; {card}")
+
+    # -- 13: training qwen1.5-0.5b at full width, preempted and resumed
+    t_stats = training_phase(np, torch, profile, ProfilerActivity, card)
+    log(f"[train] {json.dumps(t_stats)}; {card}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

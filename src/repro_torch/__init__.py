@@ -13,12 +13,19 @@ Layout mirrors ``repro`` module for module:
                             LM data pipeline over logzip shards
     repro_torch.ingest   -- the multi-tenant ingest daemon
     repro_torch.lifecycle -- archive compaction and retention
-    repro_torch.models   -- the LM zoo's dense family: ``Transformer``,
-                            ``forward``, KV-cache ``prefill`` /
-                            ``decode_step``, weights carried from ``repro``
+    repro_torch.models   -- the LM zoo, every family: ``Transformer``,
+                            ``forward``, ``loss_fn``, KV-cache
+                            ``prefill`` / ``decode_step``, weights
+                            carried from ``repro``
     repro_torch.configs  -- the architecture configs
+    repro_torch.optim    -- AdamW, clipping, the cosine schedule, int8
+                            error-feedback gradient compression
+    repro_torch.train    -- the train steps
+    repro_torch.checkpoint -- atomic, async checkpoints in the
+                            reference's format
     repro_torch.launch   -- the logzip CLI (``compress``) and the LM
-                            serving launcher (``serve``)
+                            serving and training launchers (``serve``,
+                            ``train``)
 
 The package imports torch and numpy, never jax and nothing of ``repro``.
 Entry points run their kernels on ``LogzipConfig.device`` ("cuda" by

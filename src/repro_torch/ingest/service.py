@@ -446,6 +446,7 @@ class IngestDaemon:
         self._all_socks: set = set()
         self._draining = False
         self._drained = threading.Event()
+        self._stop_accept = threading.Event()  # shutdown's, before its wake-up
         self._accept_thread: threading.Thread | None = None
 
         if address is None:
@@ -490,12 +491,15 @@ class IngestDaemon:
                 conn, _addr = self._listener.accept()
             except OSError:
                 return  # listener closed: drain begun
-            if self._draining:  # shutdown's wake-up connection, or a late client
-                conn.close()
-                return
+            # every connection goes to _handle: once draining, _admit rejects
+            # a late client with code "draining", as the reference's does;
+            # shutdown's own wake-up connection sends nothing, and its
+            # _handle ends at once
             t = threading.Thread(target=self._handle, args=(conn,),
                                  daemon=True, name="ingest-conn")
             t.start()
+            if self._stop_accept.is_set():
+                return
 
     def shutdown(self, timeout: float = 30.0) -> bool:
         """First call: graceful drain — stop admitting, let every worker
@@ -510,7 +514,8 @@ class IngestDaemon:
             conns = list(self._conns.values()) + list(self._all_socks)
         # closing the listener does not wake a thread blocked in accept()
         # on it (Linux): a connection of our own does, and the loop, seeing
-        # the drain, returns
+        # the stop, returns after handing it on
+        self._stop_accept.set()
         if self._wake_accept() and self._accept_thread is not None:
             self._accept_thread.join(timeout)
         try:

@@ -22,6 +22,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels.ops import check_device
@@ -52,7 +53,7 @@ def tp_pad(cfg: ModelConfig, tp: int) -> ModelConfig:
 # ------------------------------------------------------------------ modules
 
 def _empty(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 def _leaves(shapes: dict, dtype, device, fp32=()) -> nn.ParameterDict:
@@ -369,25 +370,106 @@ def _cross_attn(x, p, cfg: ModelConfig, k, v):
 
 # ------------------------------------------------------------------ forward
 
-@torch.inference_mode()
-def forward(model: Transformer, batch: dict):
-    """Eval forward -> (logits (B, S, padded_vocab), aux loss: the sum of
-    the MoE layers' load-balance losses, fp32)."""
+def _block(x, aux, block, xp, model: Transformer, positions, memory):
+    """One block's sub-layers (and, with an encoder, the cross-attention
+    after them) -> (x, aux)."""
+    cfg = model.cfg
+    for j in range(cfg.block_period):
+        sub = block[f"sub{j}"]
+        x = x + _mixer_seq(rms_norm(x, sub.ln1, cfg.norm_eps), sub, cfg, positions)[0]
+        y, a, _ = _ffn_seq(rms_norm(x, sub.ln2, cfg.norm_eps), sub, cfg)
+        x = x + y
+        if a is not None:
+            aux = aux + a
+    if memory is not None:
+        h = rms_norm(x, xp.lnx, cfg.norm_eps)
+        x = x + _cross_attn(h, xp.xattn, cfg, *_cross_kv(memory, xp.xattn, cfg))
+    return x, aux
+
+
+def _forward(model: Transformer, batch: dict, return_hidden: bool = False):
+    """The forward of ``forward``, recording the autograd graph where grad
+    mode is on (``loss_fn``'s); ``return_hidden`` gives the final normed
+    hidden state (B, S, d) in place of the logits (the vocab-chunked
+    loss's input). With ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps its inputs and
+    recomputes the rest in the backward, as the reference's
+    ``jax.checkpoint`` around each block does; the values and gradients
+    are the same either way."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
     memory = _encoder_forward(model, batch["frames"]) if cfg.n_enc_layers else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, block in enumerate(model.blocks):
-        for j in range(cfg.block_period):
-            sub = block[f"sub{j}"]
-            x = x + _mixer_seq(rms_norm(x, sub.ln1, cfg.norm_eps), sub, cfg, positions)[0]
-            y, a, _ = _ffn_seq(rms_norm(x, sub.ln2, cfg.norm_eps), sub, cfg)
-            x = x + y
-            if a is not None:
-                aux = aux + a
-        if memory is not None:
-            xp = model.xattn_of_block(i)
-            h = rms_norm(x, xp.lnx, cfg.norm_eps)
-            x = x + _cross_attn(h, xp.xattn, cfg, *_cross_kv(memory, xp.xattn, cfg))
+        xp = model.xattn_of_block(i) if memory is not None else None
+        args = (x, aux, block, xp, model, positions, memory)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x, aux = _block(*args)
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
+    if return_hidden:
+        return x, aux
     return x @ model.unembedding(), aux
+
+
+@torch.inference_mode()
+def forward(model: Transformer, batch: dict):
+    """Eval forward -> (logits (B, S, padded_vocab), aux loss: the sum of
+    the MoE layers' load-balance losses, fp32). It runs in inference mode
+    and records no graph; ``loss_fn`` takes the same forward with the
+    graph."""
+    return _forward(model, batch)
+
+
+def _chunked_lse_ll(x, unembed, labels, chunk: int):
+    """(logsumexp, label-logit) over vocab chunks: the (B, S, V) logits
+    tensor is never built whole, only (B, S, chunk) tiles. A streaming
+    max / sum-exp, exact; the chunk shrinks to the largest divisor of the
+    vocab at most ``chunk``, as in the reference."""
+    v = unembed.shape[1]
+    chunk = min(chunk, v)
+    while v % chunk:
+        chunk -= 1
+    lab = labels.clamp(min=0)
+    m = torch.full(x.shape[:-1], -1e30, dtype=torch.float32, device=x.device)
+    se = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    ll = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for ci in range(v // chunk):
+        lg = (x @ unembed[:, ci * chunk:(ci + 1) * chunk]).float()    # (B, S, c)
+        m_new = torch.maximum(m, lg.amax(dim=-1))
+        se = se * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(dim=-1)
+        local = lab - ci * chunk
+        inside = (local >= 0) & (local < chunk)
+        pick = lg.gather(-1, local.clamp(0, chunk - 1)[..., None])[..., 0]
+        ll = torch.where(inside, pick, ll)
+        m = m_new
+    return m + torch.log(torch.clamp(se, min=1e-30)), ll
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """Next-token cross-entropy in fp32 with a z-loss (1e-4 lse^2) and the
+    MoE load-balance term (1e-2 aux), labels of -1 ignored; the VLM's
+    patch prefix carries label -1 -> (loss, {"nll", "aux"}). Records the
+    autograd graph (grad mode on); ``cfg.vocab_chunk`` takes the
+    vocab-chunked path."""
+    cfg = model.cfg
+    labels = torch.as_tensor(batch["labels"], device=model.device).long()
+    if cfg.n_patches and "vision" in batch:  # the vision prefix carries no labels
+        pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    if cfg.vocab_chunk:
+        x, aux = _forward(model, batch, return_hidden=True)
+        lse, ll = _chunked_lse_ll(x, model.unembedding(), labels, cfg.vocab_chunk)
+    else:
+        logits, aux = _forward(model, batch)
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, dim=-1)
+        ll = logits32.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    nll = ((lse - ll) * mask).sum() / denom
+    zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom
+    return nll + zloss + 1e-2 * aux, {"nll": nll, "aux": aux}

@@ -10,6 +10,11 @@ array arrives with numpy's ``bfloat16`` extension dtype, which
 ``torch.from_numpy`` refuses: it goes through ``float32`` (lossless) and
 is cast back to bf16. ``to_reference`` gives bf16
 parameters back as ``float32`` arrays, for the same reason.
+
+``stack`` and ``unstack`` map any ``{parameter name: tensor}`` (the
+parameters, their gradients, AdamW's moments) to the reference's tree
+and back, in the tensors' own dtypes: the checkpoint's leaves and the
+reference-tree gradients of the tests.
 """
 
 from __future__ import annotations
@@ -61,28 +66,77 @@ def _paths(model: Transformer):
             yield p, name, parts, None, None
 
 
-@torch.no_grad()
-def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
-    """A ``Transformer`` holding ``tree``'s values, each cast to the
-    parameter's dtype (the reference's: fp32 norms, ``cfg.dtype`` the
-    rest). Raises ``KeyError`` for a missing or extra parameter and
-    ``ValueError`` for a shape that differs, a stacked leaf's leading axis
-    or a ``blocks`` list's length included."""
-    model = Transformer(cfg, device)
+def _set(tree: dict, path: list[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def reference_ndims(model: Transformer) -> dict[str, int]:
+    """Parameter name -> the number of dimensions of its leaf in the
+    reference tree: one more than the parameter's where the reference
+    stacks the blocks (``scan_layers``), the encoder or the
+    cross-attentions on a leading axis. AdamW decays a leaf by this
+    number (``optim.adamw``), so a block's norm scale, (d,) here and
+    (L, d) there, is decayed as the reference decays it."""
+    cfg = model.cfg
+    return {name: p.ndim + (group is not None and _stacked(cfg, group))
+            for p, name, _, group, _ in _paths(model)}
+
+
+def stack(model: Transformer, tensors: dict) -> dict:
+    """``{parameter name: tensor}`` (the parameters, their gradients or
+    AdamW moments) -> the reference's tree of them: each stacked group's
+    tensors ``torch.stack``-ed on a leading axis, unstacked blocks as a
+    list of per-block trees."""
+    cfg = model.cfg
+    tree: dict = {}
+    stacked: dict[str, list] = {}
+    per_block: list[dict] = [{} for _ in model.blocks]
+    for _, name, path, group, i in _paths(model):
+        t = tensors[name]
+        if group is None:
+            _set(tree, path, t)
+        elif _stacked(cfg, group):
+            stacked.setdefault("/".join(path), [None] * len(getattr(model, group)))[i] = t
+        else:
+            _set(per_block[i], path[1:], t)
+    for key, ts in stacked.items():
+        _set(tree, key.split("/"), torch.stack(ts))
+    if not cfg.scan_layers:
+        tree["blocks"] = per_block
+    return tree
+
+
+def unstack(model: Transformer, tree: dict) -> dict:
+    """The reference's tree (numpy arrays or tensors) -> ``{parameter
+    name: its array}``, a stacked leaf sliced at the block's index.
+    Raises ``KeyError`` for a missing or extra leaf and ``ValueError``
+    for a shape that differs from the parameter's, a stacked leaf's
+    leading axis or a ``blocks`` list's length included."""
+    cfg = model.cfg
     blocks = tree.get("blocks")
     if not cfg.scan_layers and isinstance(blocks, list) and len(blocks) != len(model.blocks):
         raise ValueError(f"the reference tree has {len(blocks)} blocks, the model "
                          f"{len(model.blocks)}")
-    used = set()
+    out, used = {}, set()
     for p, name, path, group, i in _paths(model):
         if group is None:
             a = _leaf(tree, path, name)
         elif _stacked(cfg, group):
-            a = np.asarray(_leaf(tree, path, name))
+            a = _leaf(tree, path, name)
             n = len(getattr(model, group))
-            if a.shape[:1] != (n,):
-                raise ValueError(f"{name}: the reference stacks {a.shape[:1]} {group}, the "
-                                 f"model has {n}")
+            if tuple(a.shape[:1]) != (n,):
+                raise ValueError(f"{name}: the reference stacks {tuple(a.shape[:1])} {group}, "
+                                 f"the model has {n}")
             a = a[i]
         else:
             a = _leaf(blocks[i], path[1:], name)
@@ -90,7 +144,7 @@ def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{name}: the reference's shape {tuple(a.shape)} is not "
                              f"{tuple(p.shape)}")
-        p.copy_(_tensor(a).to(dtype=p.dtype))
+        out[name] = a
     given = set()
 
     def walk(node, path):
@@ -107,34 +161,22 @@ def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
     if given != used:
         raise KeyError(f"the reference tree has parameters the model lacks: "
                        f"{sorted(given - used)}")
+    return out
+
+
+@torch.no_grad()
+def from_reference(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
+    """A ``Transformer`` holding ``tree``'s values, each cast to the
+    parameter's dtype (the reference's: fp32 norms, ``cfg.dtype`` the
+    rest). Raises as ``unstack`` does."""
+    model = Transformer(cfg, device)
+    params = dict(model.named_parameters())
+    for name, a in unstack(model, tree).items():
+        params[name].copy_(_tensor(a).to(dtype=params[name].dtype))
     return model
 
 
 def to_reference(model: Transformer) -> dict:
     """The reference's tree of ``model``'s values (bf16 as float32)."""
-    cfg = model.cfg
-    tree: dict = {}
-    stacked: dict[str, list] = {}
-    per_block: list[dict] = [{} for _ in model.blocks]
-    for p, _, path, group, i in _paths(model):
-        if group is None:
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = _array(p)
-        elif _stacked(cfg, group):
-            stacked.setdefault("/".join(path), [None] * len(getattr(model, group)))[i] = _array(p)
-        else:
-            node = per_block[i]
-            for key in path[1:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = _array(p)
-    for key, arrays in stacked.items():
-        path = key.split("/")
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.stack(arrays)
-    if not cfg.scan_layers:
-        tree["blocks"] = per_block
-    return tree
+    with torch.no_grad():
+        return _map(_array, stack(model, dict(model.named_parameters())))

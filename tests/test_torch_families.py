@@ -409,7 +409,7 @@ def test_init_params_scales_by_leaf(arch, dtype):
         want = np.log(np.broadcast_to(np.arange(1, cfg.ssm_state + 1, dtype=np.float32),
                                       (cfg.d_inner, cfg.ssm_state)))
         assert m["A_log"].dtype == f32
-        np.testing.assert_allclose(m["A_log"].numpy(), want, rtol=1e-6)
+        np.testing.assert_allclose(m["A_log"].detach().numpy(), want, rtol=1e-6)
         std(m["in_proj"], d ** -0.5, "in_proj")
         std(m["out_proj"], cfg.d_inner ** -0.5, "out_proj")
         std(m["x_proj"], cfg.d_inner ** -0.5, "x_proj")

@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import models
+from repro_torch import checkpoint, models
 from repro_torch.core import codec, parallel, query, stream
 from repro_torch.core.encode import ColumnCodec
 from repro_torch.core.ise import iterative_structure_extraction
 from repro_torch.core.match import match_first
 from repro_torch.data import pipeline
 from repro_torch.kernels import ops
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import weights
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +63,22 @@ for arch in ARCH_IDS:
     logits, cache = prefill(model, batch, 10 + cfg.n_patches)
     logits, cache = decode_step(model, cache, logits.argmax(-1)[:, None])
     assert torch.isfinite(logits).all(), arch
+# one train step, and its state through a checkpoint and back
+import tempfile
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+from repro_torch.optim.adamw import adamw_init
+from repro_torch.train.steps import load_train_state, make_train_step, train_state
+cfg = get_config("qwen1.5-0.5b").reduced(dtype="float32")
+model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+toks = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+model, opt, m = make_train_step(cfg)(model, adamw_init(model), {"tokens": toks, "labels": toks})
+assert torch.isfinite(m["loss"]) and int(opt["step"]) == 1
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d, 1, train_state(model, opt), extra={"data": {}})
+    tree, extra, step = load_checkpoint(d, device="cpu")
+    again = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    assert int(load_train_state(again, tree)["step"]) == 1 and step == 1
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), again.parameters()))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 print("OK", len(names), len(blob))
@@ -135,6 +152,10 @@ def _entry_points():
         # the other families: MoE, the mamba hybrid, RWKV6, the VLM, audio
         **{f"{entry}[{arch}]": _family_entry(entry, arch) for arch in FAMILIES
            for entry in ("init_params", "init_cache", "from_reference")},
+        # training: the checkpoint reader and the launcher
+        "load_checkpoint": lambda: checkpoint.load_checkpoint(os.devnull),
+        "CheckpointManager.restore": lambda: checkpoint.CheckpointManager(os.devnull).restore(),
+        "launch.train": lambda: train_launcher.main(["--workdir", os.devnull + "/x"]),
     }
 
 

@@ -885,3 +885,21 @@ def test_shutdown_ends_the_accept_thread(sock_root, tcp):
     thread.join(WAIT)
     assert not thread.is_alive()
     assert not [t for t in threading.enumerate() if t is thread]
+
+
+def _late_client(k, root):
+    """A client that connects after the drain began, before the listener
+    closed: the window ``shutdown`` opens with ``_draining = True``."""
+    daemon = k.Daemon(root, cfg=k.cfg).start()
+    with daemon._lock:
+        daemon._draining = True
+    with pytest.raises(k.P.ProtocolError) as ei:
+        k.Client(daemon.address, "t0")
+    return ei.value.code, str(ei.value)
+
+
+def test_a_client_connecting_during_the_drain_gets_code_draining(sock_root):
+    """Both packages hand the late connection to ``_admit``, which rejects
+    it with an ERROR frame of code ``draining``; the port's accept loop
+    used to close it unanswered (code ``rejected``)."""
+    assert _daemon_both(_late_client, sock_root) == ("draining", "daemon is shutting down")
