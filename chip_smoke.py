@@ -26,7 +26,8 @@ Phases, each of which raises on failure:
    input each kernel was given and every first-hit call; its
    host-to-device copies must equal the wrappers' uploads, one a
    ``colcodec_transform`` call. Both archives must equal the port's
-   ``device="cpu"`` archive byte for byte;
+   ``device="cpu"`` archive byte for byte (a process of its own, beside
+   phases 3-6, makes it from the same corpus file; checked after phase 6);
 4. the golden LZJF fixtures of ``tests/fixtures`` (HDFS, 400 lines, seed
    42): the container inside each archive built on the card must equal
    the fixture's (containers, not gzip streams, since zlib builds differ);
@@ -41,12 +42,12 @@ Phases, each of which raises on failure:
    ``match_first`` and the spans ``extract_spans``; φ equals
    ``common_token_count``;
 6. the streaming containers and the query path at real size, on the
-   1,000,000 HDFS lines of phase 3: a ``StreamingCompressor`` session on
-   the card, timed with nothing measuring inside it (LZJS v3 with
-   screens, 8,192-line chunks; its ``colcodec_transform`` launches
-   printed) and
+   HDFS lines of phase 3: a ``StreamingCompressor`` session on the card
+   over the first 500,000, timed with nothing measuring inside it (LZJS
+   v3 with screens, 8,192-line chunks; its ``colcodec_transform``
+   launches printed) and
    ``compress_parallel`` over four spawned workers on the card (LZJM of
-   the first 250,000 lines, a chunk per worker), each equal byte for byte
+   the first 125,000 lines, a chunk per worker), each equal byte for byte
    to its ``device="cpu"``
    twin and decompressing to the lines; then on the LZJF of phase 3, the
    LZJM and the LZJS, ``count_by_template``, ``top_k`` of two header
@@ -126,8 +127,19 @@ Phases, each of which raises on failure:
    within AdamW's reach; the preemption checkpoint in the reference's
    layout; one train step of a 2-layer fp32 twin on the card against the
    CPU; ms a step, tokens/s, peak memory, the checkpoint's bytes and
-   seconds, the FLOP bound.
-   Then print the ``kernels`` line and the result line.
+   seconds, the FLOP bound;
+14. the distribution layer: (a) the sharding rules for all ten archs at
+   full width on the (16, 16) and (2, 16, 16) meshes, on shapes; (b)
+   ``wildcard_match_sharded`` on a one-rank NCCL mesh at the (N, K)
+   kernel's phase-7 input, equal to ``wildcard_match`` and the plain
+   version, its launch counted (row 1a's path) and timed; (c) qwen1.5-0.5b
+   at full width in fp32, one train step as DTensors on that mesh against
+   the plain step; (d) the cost model over one bf16 (8, 256) step on the
+   card beside the measured ms; (e) the production dry-run cell
+   (qwen1.5-0.5b x train_4k x 16 x 16, a fake group of 256 ranks) as a
+   process, beside (a)-(d): memory per rank against 80 GB, cost terms.
+   Then print the ``kernels`` line (row 1a's launches are phase 3's and
+   phase 14's) and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -157,11 +169,16 @@ OPS_LINES = 1_000_000  # the ops-layer phase: Spark, loggen seed 3
 OPS_SEED = 3
 SIMCOUNT_ROWS = 65_536
 STREAM_CHUNK_LINES = 8192  # StreamingCompressor's default chunk
+# phase 6: the LZJS session takes the first half of the lines: with all
+# 1,000,000 the script ran 1,230 s of its 1,200 beside phase 14 on a slower
+# H100 80GB HBM3 host (phase 6 325.5 s there)
+STREAM_LINES = 500_000
 LZJM_WORKERS = 4
-# the LZJM takes the first quarter of the lines, a chunk per worker: with
-# all 1,000,000 the script ran 711-800 s of its 1200 s on slower hosts, and
-# with the first 500,000 beside phase 12, 1,066 s on one H100 80GB HBM3 host
-LZJM_LINES = 250_000
+# the LZJM takes the first eighth of the lines, a chunk per worker: with
+# all 1,000,000 the script ran 711-800 s of its 1200 s on slower hosts,
+# with the first 500,000 beside phase 12 1,066 s on one H100 80GB HBM3
+# host, with 250,000 beside phase 14 1,230 s on a slower one
+LZJM_LINES = 125_000
 LZJM_CHUNK_LINES = LZJM_LINES // LZJM_WORKERS
 # phase 8: the first lines of phase 3's corpus; 100,000 (13 chunks) until
 # the script with phase 12 ran 1,056-1,066 s on slower H100 80GB HBM3
@@ -219,6 +236,11 @@ TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_STEPS = 10    # N: run A's steps, and run B's in all
 TRAIN_BATCH, TRAIN_SEQ = 8, 256   # the launcher's defaults
 TRAIN_TWIN_REL = 1e-4  # (b): fp32 on the card against the CPU, of the largest |value|
+# phase 14: the distribution layer; (c) and (d) train the launcher's arch,
+# (e) dry-runs its production cell (a fake group of 256 ranks, on shapes)
+DIST_ARCH = TRAIN_ARCH
+DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k", "single")
+DRYRUN_TIMEOUT = 300.0  # seconds the dry-run process may take beyond (a)-(d)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
@@ -888,7 +910,7 @@ def aggregations(query, blob, device):
     return res, secs, stats
 
 
-def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small_rows):
+def query_phase(np, torch, profile, activity, lines, fmt, lzjf, small_rows):
     """Phase 6: LZJS and LZJM on the card at real size, each against its
     device="cpu" twin, then the aggregations and searches on the three
     archives -> (launch counts of the aggregations, the largest input of
@@ -904,11 +926,14 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
     from repro_torch.core.stream import LZJSReader, StreamingCompressor, decompress_lzjs
     from repro_torch.kernels import ops
 
+    s_lines = lines[:STREAM_LINES]
+    s_bytes = sum(len(line.encode("utf-8", "surrogateescape")) + 1 for line in s_lines)
+
     def session(device):
         buf, stages = io.BytesIO(), {}
         with StreamingCompressor(buf, LogzipConfig(format=fmt, device=device),
                                  chunk_lines=STREAM_CHUNK_LINES, stage_times=stages) as sc:
-            sc.feed(lines)
+            sc.feed(s_lines)
         return buf.getvalue(), stages
 
     ops.reset_launch_counts()
@@ -920,9 +945,9 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
     rd = LZJSReader(io.BytesIO(lzjs))
     n_chunks, screened = len(rd), rd.footer.get("screens") is not None
     rd.close()
-    log(f"[stream] LZJS v{lzjs[4]} (screens {screened}) on the card: {n_chunks} chunks, compress "
-        f"{comp_s:.2f} s: {len(lines) / comp_s:.0f} lines/s, {raw_bytes / 1e6 / comp_s:.2f} MB/s, "
-        f"ratio {raw_bytes / len(lzjs):.3f} ({len(lzjs)} bytes)")
+    log(f"[stream] LZJS v{lzjs[4]} (screens {screened}) on the card, the first {len(s_lines)} "
+        f"lines: {n_chunks} chunks, compress {comp_s:.2f} s: {len(s_lines) / comp_s:.0f} lines/s, "
+        f"{s_bytes / 1e6 / comp_s:.2f} MB/s, ratio {s_bytes / len(lzjs):.3f} ({len(lzjs)} bytes)")
     log(f"[stream] stage seconds: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     log(f"[stream] launches: {json.dumps(counts)}")
     log(f"[stream] colcodec_transform: {counts['colcodec_transform']} launches; this timed "
@@ -933,7 +958,7 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
         raise AssertionError(f"the session skipped a kernel in some chunk: {counts}, "
                              f"{n_chunks} chunks")
     t0 = time.perf_counter()
-    if decompress_lzjs(lzjs) != lines:
+    if decompress_lzjs(lzjs) != s_lines:
         raise AssertionError("decompress_lzjs(LZJS) != lines")
     dec_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -950,8 +975,7 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
 
     m_lines = lines[:LZJM_LINES]
     m_bytes = sum(len(line.encode("utf-8", "surrogateescape")) + 1 for line in m_lines)
-    log(f"[lzjm] cut to the first {len(m_lines)} lines: with all {len(lines)} the script ran "
-        f"711-800 s of its 1200 s on slower hosts, with 500000 beside phase 12 1066 s")
+    log(f"[lzjm] cut to the first {len(m_lines)} lines (LZJM_LINES says why)")
     t0 = time.perf_counter()
     lzjm = compress_parallel(m_lines, LogzipConfig(format=fmt, device="cuda"),
                              n_workers=LZJM_WORKERS, chunk_lines=LZJM_CHUNK_LINES)
@@ -1024,8 +1048,8 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
         ops.input_hook = None
     t0 = time.perf_counter()
     rows = header_rows(lines, fmt)
-    truth = {"lzjf": header_truth(rows), "lzjm": header_truth(rows[:LZJM_LINES])}
-    truth["lzjs"] = truth["lzjf"]
+    truth = {"lzjf": header_truth(rows), "lzjm": header_truth(rows[:LZJM_LINES]),
+             "lzjs": header_truth(rows[:STREAM_LINES])}
     log(f"[query] plain count of the header fields over the lines "
         f"({time.perf_counter() - t0:.1f} s)")
     for kind, blob in archives.items():
@@ -1045,7 +1069,7 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
     log("[query] header-field aggregations equal the plain count over the lines")
 
     t0 = time.perf_counter()
-    needle = next(tok for tok in lines[len(lines) // 2].split() if tok.startswith("blk_"))
+    needle = next(tok for tok in s_lines[len(s_lines) // 2].split() if tok.startswith("blk_"))
     for name, pred, test in (
             (f"Substring({needle!r})", query.Substring(needle), lambda i, l: needle in l),
             ("FieldEq(Level=WARN)", query.FieldEq("Level", "WARN"),
@@ -1053,7 +1077,7 @@ def query_phase(np, torch, profile, activity, lines, raw_bytes, fmt, lzjf, small
             ("And(LineRange(400000, 400100), Substring('blk_'))",
              query.And(query.LineRange(400_000, 400_100), query.Substring("blk_")),
              lambda i, l: 400_000 <= i < 400_100 and "blk_" in l)):
-        want = [(i, l) for i, l in enumerate(lines) if test(i, l)]
+        want = [(i, l) for i, l in enumerate(s_lines) if test(i, l)]
         st = query.QueryStats()
         t1 = time.perf_counter()
         hits = list(query.search(lzjs, pred, stats=st))
@@ -1283,14 +1307,34 @@ def corpus_writer(dataset: str, n: int, seed: int, path: Path):
     return proc
 
 
-def corpus_read(proc, path: Path) -> list[str]:
-    """The lines ``proc`` (a ``corpus_writer``) wrote, once it is done."""
+def corpus_read(proc, path: Path, keep: bool = False) -> list[str]:
+    """The lines ``proc`` (a ``corpus_writer``) wrote, once it is done; the
+    file is deleted unless ``keep``."""
     if proc.wait(timeout=600) != 0:
         raise RuntimeError(f"writing {path.name} failed (exit {proc.returncode})")
     with open(path, encoding="utf-8", newline="") as f:
         lines = f.read().split("\n")
-    path.unlink()
+    if not keep:
+        path.unlink()
     return lines
+
+
+def cpu_twin(corpus: Path, out: Path):
+    """Phase 3's ``device="cpu"`` compress of the corpus file's lines (read
+    as ``corpus_read`` reads them) as a process of its own, beside phases
+    3-6, writing the archive to ``out`` and its seconds to stdout."""
+    code = ("import sys, time; from repro_torch.core.codec import LogzipConfig, compress; "
+            "from repro_torch.data.loggen import DATASETS; "
+            "lines = open(sys.argv[1], encoding='utf-8', newline='').read().split('\\n'); "
+            "t0 = time.perf_counter(); "
+            "blob = compress(lines, LogzipConfig(format=DATASETS['HDFS']['format'], "
+            "device='cpu')); print(time.perf_counter() - t0); "
+            "open(sys.argv[2], 'wb').write(blob)")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(corpus), str(out)], cwd=str(ROOT),
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)
+    return proc
 
 
 # the CPU side of phase 9's compact twin, in a process of its own:
@@ -2270,6 +2314,315 @@ def _train_twin(np, torch, cfg, card: str) -> dict:
             "twin_param_rel": p_err, "twin_small_grad_flips": flips}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dryrun_process(out_dir: Path):
+    """Phase 14 (e): the production dry-run cell as a process of its own
+    (its fake process group of 256 ranks is process-wide)."""
+    arch, shape, mesh = DRYRUN_CELL
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", mesh, "--device", "cuda", "--out", str(out_dir)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _rules_at_full_width(card: str) -> dict:
+    """Phase 14 (a): ``param_pspecs`` for all ten archs (heads padded to
+    16) on both production mesh shapes, built on shapes only."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.distributed.sharding import AbstractMesh, param_pspecs
+    from repro_torch.models import Transformer, tp_pad
+
+    t0 = time.perf_counter()
+    leaves = big = 0
+    for arch in ARCH_IDS:
+        cfg = tp_pad(get_config(arch), 16)
+        model = Transformer(cfg, "meta")
+        names = {n: p for n, p in model.named_parameters()}
+        for sizes, axes in (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))):
+            ax = dict(zip(axes, sizes))
+            specs = param_pspecs(model, cfg, AbstractMesh(sizes, axes))
+            if set(specs) != set(names):
+                raise AssertionError(f"(a) {arch} {axes}: specs cover {len(specs)} of "
+                                     f"{len(names)} leaves")
+            for name, p in names.items():
+                for dim, e in zip(p.shape, specs[name]):
+                    n = 1
+                    for a in (() if e is None else e if isinstance(e, tuple) else (e,)):
+                        n *= ax[a]
+                    if dim % n:
+                        raise AssertionError(f"(a) {arch} {name} {tuple(p.shape)} "
+                                             f"{specs[name]}: does not divide")
+                if p.numel() > 1e6:
+                    big += 1
+                    if all(e is None for e in specs[name]):
+                        raise AssertionError(f"(a) {arch} {name} {tuple(p.shape)} is not sharded")
+                leaves += 1
+        del model
+    seconds = time.perf_counter() - t0
+    log(f"[dist] (a) sharding rules, 10 archs at full width (heads padded to 16) x the (16, 16) "
+        f"and (2, 16, 16) meshes, on shapes: {leaves} leaves covered and dividing, {big} above "
+        f"1e6 elements each sharded on some axis; {seconds:.2f} s")
+    return {"rule_leaves": leaves, "rule_big_leaves": big, "rules_s": seconds}
+
+
+def distribution_phase(np, torch, card: str, match_args) -> dict:
+    """Phase 14: the distribution layer on the card -> the phase's figures.
+
+    (a) ``_rules_at_full_width``. (b) ``ops.wildcard_match_sharded`` on a
+    one-rank NCCL mesh (``make_local_mesh(1)``) at row 1a's input (the
+    largest first-token bucket of phase 3, ``match_args``): ``torch.equal``
+    to ``ops.wildcard_match`` and to the plain version; launches counted
+    from 0 around the call (exactly 1), the kernel's device time under
+    ``torch.profiler``. (c) ``DIST_ARCH`` at full width in fp32 (TF32
+    off), one ``make_train_step`` step of a (8, 256) batch of byte tokens
+    (seed 14) plain and as DTensors on that mesh (params, moments and
+    batch placed by ``param_pspecs`` / ``batch_pspecs``, the mesh
+    installed): loss and grad norm within ``TRAIN_TWIN_REL``, every
+    updated parameter within it of its leaf's largest |value| but where
+    the plain gradient is below 1e-4 of the largest (within 2 lr), as
+    phase 13 (b); the first and a later step's seconds of each. (d) the
+    cost model (``hlo_cost.CostModel``) over one bf16 step of
+    ``DIST_ARCH`` (8, 256) on the card: FLOPs beside 8 N tokens, bytes,
+    convert bytes, the roofline terms beside the measured ms a step
+    (median of 3, nothing measuring). (e) ``DRYRUN_CELL`` as a process
+    (``launch.dryrun``, started first, beside (a)-(d)): memory per rank
+    against 80 GB, the cost terms, its seconds."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.act_shard import install_mesh
+    from repro_torch.distributed.sharding import (
+        batch_pspecs,
+        param_pspecs,
+        shard_batch,
+        shard_model,
+        shard_opt_state,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wildcard_match as wm
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.adamw import AdamWHyper, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="dryrun-", dir=ROOT / "build"))
+    t_dry = time.perf_counter()
+    dry = _dryrun_process(work)
+    stats = {}
+    try:
+        stats.update(_rules_at_full_width(card))  # (a)
+
+        # (b) the sharded match on a one-rank NCCL mesh
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+        mesh = make_local_mesh(1, device="cuda")
+        logs, lens, tmpl, tl = (a.cpu().numpy() for a in match_args)
+        n, t = logs.shape
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = ops.wildcard_match_sharded(logs, lens, tmpl, tl, mesh)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts["wildcard_match"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"(b) the sharded match launched {counts}")
+        local = got.to_local()
+        want = torch.from_numpy(ops.wildcard_match(logs, lens, tmpl, tl, device="cuda"))
+        plain = wm.wildcard_match_plain(*match_args) & (match_args[1] <= t)[:, None]
+        if not (tuple(got.shape) == (n, tmpl.shape[0]) and torch.equal(local.cpu(), want)
+                and torch.equal(local, plain)):
+            raise AssertionError("(b) wildcard_match_sharded differs from wildcard_match or "
+                                 "the plain version")
+        # the kernel's device time on the tensors the sharded call gives it
+        given = []
+        ops.input_hook = lambda name, args: given.append(args)
+        try:
+            ops.wildcard_match_sharded(logs, lens, tmpl, tl, mesh)
+        finally:
+            ops.input_hook = None
+        kernel_ms = kernel_device_ms(torch, wm.wildcard_match, given[0], 20)
+        if not (len(given) == 1 and kernel_ms > 0):
+            raise AssertionError(f"(b) {len(given)} kernel inputs, {kernel_ms} ms")
+        call_ms = time_ms(torch, ops.wildcard_match_sharded, (logs, lens, tmpl, tl, mesh), 3)
+        stats.update(sharded_match_launches=counts["wildcard_match"],
+                     sharded_match_kernel_ms=kernel_ms, sharded_match_call_ms=call_ms,
+                     sharded_match_hits=int(local.sum()))
+        log(f"[dist] (b) wildcard_match_sharded on a one-rank NCCL mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+            f"at N={n} T={t} K={tmpl.shape[0]} Tt={tmpl.shape[1]}: launches {counts['wildcard_match']} "
+            f"(counted from 0 around the call), torch.equal to wildcard_match and to the plain "
+            f"version ({int(local.sum())} hits); the kernel {kernel_ms:.4f} ms a launch on the "
+            f"rank's inputs (CUDA graph, CUDA events), the whole call {call_ms:.3f} ms with its "
+            f"uploads; on {card}")
+
+        # (c) the DTensor train step against the plain one, full width, fp32
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 matmuls are on: fp32 parity would not hold")
+        dev = torch.device("cuda")
+        cfg = dataclasses.replace(get_config(DIST_ARCH), dtype="float32")
+        hyper = AdamWHyper(lr=6e-4)
+        step = make_train_step(cfg, hyper)
+        toks = np.random.default_rng(14).integers(3, 259, (TRAIN_BATCH, TRAIN_SEQ + 1))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)).to(dev)}
+        one = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        params = dict(one.named_parameters())
+        g_abs = {k: g.abs() for k, g in zip(params, torch.autograd.grad(
+            loss_fn(one, batch)[0], list(params.values())))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one, opt1, m1 = step(one, adamw_init(one), batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        two = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        specs = param_pspecs(two, cfg, mesh)
+        opt2 = shard_opt_state(adamw_init(two), mesh, specs)
+        shard_model(two, mesh, specs)
+        install_mesh(mesh)
+        try:
+            sb = shard_batch(batch, mesh, batch_pspecs(batch, mesh))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            two, opt2, m2 = step(two, opt2, sb)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t0
+            l1, l2 = float(m1["loss"]), float(m2["loss"])
+            n1, n2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+            if not (abs(l1 - l2) <= TRAIN_TWIN_REL * abs(l1)
+                    and abs(n1 - n2) <= TRAIN_TWIN_REL * n1):
+                raise AssertionError(f"(c) loss {l2} / {l1}, grad norm {n2} / {n1} (DTensor / "
+                                     "plain)")
+            top_g = max(float(g.max()) for g in g_abs.values())
+            worst = worst_small = 0.0
+            for k, p2 in two.named_parameters():
+                p1 = params[k]
+                diff = (p2.detach().to_local() - p1.detach()).abs()
+                small = g_abs[k] < 1e-4 * top_g
+                scale = float(p1.detach().abs().max())
+                e = float(diff[~small].max()) if bool((~small).any()) else 0.0
+                e_small = float(diff[small].max()) if bool(small.any()) else 0.0
+                if e > TRAIN_TWIN_REL * scale or e_small > 2 * hyper.lr + TRAIN_TWIN_REL * scale:
+                    raise AssertionError(f"(c) {k}: DTensor and plain steps differ by {e} "
+                                         f"(max {scale}), {e_small} where |g| < 1e-4 of the "
+                                         "largest")
+                worst = max(worst, e / max(scale, 1e-30))
+                worst_small = max(worst_small, e_small)
+            del g_abs
+            # a later step of each, timed (the first pays DTensor's sharding
+            # propagation for every op's shapes)
+            times = {}
+            for label, model, opt, b in (("plain", one, opt1, batch), ("DTensor", two, opt2, sb)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(model, opt, b)
+                torch.cuda.synchronize()
+                times[label] = time.perf_counter() - t0
+        finally:
+            install_mesh(None)
+        stats.update(dtensor_step_loss=[l2, l1], dtensor_step_param_rel=worst,
+                     dtensor_step_small_grad_max=worst_small, plain_step_first_s=plain_s,
+                     dtensor_step_first_s=sharded_s, plain_step_s=times["plain"],
+                     dtensor_step_s=times["DTensor"])
+        log(f"[dist] (c) {DIST_ARCH} full width in fp32 (TF32 off), one make_train_step step "
+            f"of ({TRAIN_BATCH}, {TRAIN_SEQ}), DTensor on the one-rank mesh against plain: loss "
+            f"{l2:.7f} / {l1:.7f}, grad norm {n2:.6f} / {n1:.6f}; every updated parameter within "
+            f"{worst:.3e} of its leaf's max where |g| >= 1e-4 of the largest (tolerance "
+            f"{TRAIN_TWIN_REL}), {worst_small:.3e} elsewhere (within 2 lr); the first step "
+            f"{sharded_s:.2f} s DTensor / {plain_s:.2f} s plain, a later one "
+            f"{times['DTensor']:.3f} / {times['plain']:.3f} s; on {card}")
+        del one, two, opt1, opt2, params, batch, sb, m1, m2
+        torch.cuda.empty_cache()
+
+        # (d) the cost model over one bf16 step on the card
+        cfg = get_config(DIST_ARCH)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        opt = adamw_init(model)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)).to(dev)}
+        step = make_train_step(cfg, hyper)
+        model, opt, _ = step(model, opt, batch)  # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costs = hlo_cost.analyze(step, model, opt, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, opt, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms = float(np.median(ms))
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        terms = hlo_cost.roofline_terms(costs)
+        stats.update(cost_model={k: v for k, v in costs.items()}, roofline=terms,
+                     analytic_flops=8 * n_params * tokens, measured_step_ms=step_ms,
+                     traced_step_s=traced_s)
+        log(f"[dist] (d) cost model over one bf16 {DIST_ARCH} ({TRAIN_BATCH}, {TRAIN_SEQ}) step "
+            f"on the card: {costs['op_count']} ops, {costs['dot_count']} products, FLOPs "
+            f"{costs['flops']:.6e} against 8 N tokens = 8 x {n_params} x {tokens} = "
+            f"{8 * n_params * tokens:.6e} ({costs['flops'] / (8 * n_params * tokens):.4f}x); "
+            f"bytes {costs['hbm_bytes']:.6e}, of which convert {costs['convert_bytes']:.6e}; "
+            f"peak live {costs['peak_live_bytes']} bytes; roofline t_compute "
+            f"{terms['t_compute_s'] * 1e3:.4f} ms, t_memory {terms['t_memory_s'] * 1e3:.4f} ms "
+            f"({terms['dominant']}) against {step_ms:.3f} ms a step measured (median of 3, "
+            f"{[round(x, 3) for x in ms]}), the step at {step_ms / 1e3 / terms['step_time_lower_bound_s']:.2f}x "
+            f"the bound; the traced step {traced_s:.2f} s; on {card}")
+        del model, opt, batch
+        torch.cuda.empty_cache()
+
+        # (e) the production dry-run cell
+        out, err = dry.communicate(timeout=DRYRUN_TIMEOUT)
+        dry_s = time.perf_counter() - t_dry
+        arch, shape, mesh_kind = DRYRUN_CELL
+        art_path = work / f"{arch}__{shape}__{mesh_kind}.json"
+        if dry.returncode != 0 or not art_path.exists():
+            raise AssertionError(f"(e) the dry-run cell failed: exit {dry.returncode}, "
+                                 f"{out[-1000:]} {err[-3000:]}")
+        art = json.loads(art_path.read_text())
+        mem, hc, rf = art["memory"], art["hlo_cost"], art["roofline"]
+        if not (hc["flops_per_device"] > 0 and mem["temp_bytes"] > 0
+                and hc["collective_bytes_total"] > 0):
+            raise AssertionError(f"(e) the dry-run cell counted nothing: {art}")
+        stats.update(dryrun=art, dryrun_s=dry_s)
+        log(f"[dist] (e) dry run {arch} x {shape} x {mesh_kind} ({art['chips']} fake ranks, mode "
+            f"{art['mode']}, {art['microbatches']} microbatch) as a process, {dry_s:.1f} s beside "
+            f"(a)-(d) (lowering {art['lower_s']} s, the traced step {art['trace_s']} s): per rank "
+            f"arguments {mem['argument_bytes']} + temporaries {mem['temp_bytes']} = "
+            f"{mem['peak_bytes']} bytes against 80e9 (fits: {mem['fits_hbm']}), outputs "
+            f"{mem['output_bytes']}, aliased {mem['alias_bytes']}; FLOPs "
+            f"{hc['flops_per_device']:.6e} a rank (useful {art['useful_flops_ratio']:.4f}), "
+            f"bytes {hc['hbm_bytes_per_device']:.6e}, collectives {hc['collective_bytes']} "
+            f"({hc['collective_count']}); roofline compute {rf['t_compute_s'] * 1e3:.3f} ms, "
+            f"memory {rf['t_memory_s'] * 1e3:.3f} ms, collective "
+            f"{rf['t_collective_s'] * 1e3:.3f} ms ({rf['dominant']}); the device type of its "
+            f"mesh cuda, nothing on the card")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+        install_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[dist] phase 14 took {stats['seconds']:.1f} s")
+    return stats
+
+
 def decode_bytes(cfg, model, bsz: int, kv_len: float) -> float:
     """The bytes one decode step of ``bsz`` rows must move, at a mean
     self-attention length ``kv_len``: every weight but the embedding table,
@@ -2623,12 +2976,13 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # the two corpora are written by processes of their own beside work that
-    # times nothing: phase 3's during the build and phase 2, phase 5's during
-    # phase 3's device="cpu" compress
+    # times nothing, the build and phase 2; phase 3's device="cpu" twin runs
+    # as a process beside phases 3 (after its timed compress) to 6
     (ROOT / "build").mkdir(exist_ok=True)
     corpora = Path(tempfile.mkdtemp(prefix="corpus-", dir=ROOT / "build"))
     atexit.register(shutil.rmtree, corpora, True)
     hdfs_writer = corpus_writer("HDFS", N_LINES, SEED, corpora / "hdfs.log")
+    spark_writer = corpus_writer("Spark", OPS_LINES, OPS_SEED, corpora / "spark.log")
 
     # -- 1: build
     t0 = time.perf_counter()
@@ -2748,7 +3102,7 @@ def main() -> int:
 
     # -- 3: the main path at real size
     t0 = time.perf_counter()
-    lines = corpus_read(hdfs_writer, corpora / "hdfs.log")
+    lines = corpus_read(hdfs_writer, corpora / "hdfs.log", keep=True)
     raw_bytes = sum(len(l.encode("utf-8", "surrogateescape")) + 1 for l in lines)
     log(f"[main] {len(lines)} HDFS lines, {raw_bytes / 1e6:.1f} MB, generated beside phases "
         f"1-2, waited for and read in {time.perf_counter() - t0:.1f} s")
@@ -2778,6 +3132,7 @@ def main() -> int:
         f"({len(blob)} bytes); decompress {dec_s:.2f} s")
     log(f"[main] stage seconds: {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     log(f"[main] launches: {json.dumps(counts)}")
+    twin = cpu_twin(corpora / "hdfs.log", corpora / "hdfs.cpu.lzj")
 
     # the same compress under the profiler, keeping each kernel's largest input
     ops.reset_launch_counts()
@@ -2813,13 +3168,6 @@ def main() -> int:
             or copies["HtoD"][0] != sum(wrapper_copies.values()):
         raise AssertionError("colcodec_transform made other than one upload a call, or the "
                              "compress copied to the card outside the kernel wrappers")
-    spark_writer = corpus_writer("Spark", OPS_LINES, OPS_SEED, corpora / "spark.log")
-    t0 = time.perf_counter()
-    cpu_blob = compress(lines, LogzipConfig(format=fmt, device="cpu"))
-    log(f"[main] device='cpu' archive in {time.perf_counter() - t0:.2f} s")
-    if cpu_blob != blob:
-        raise AssertionError("the card's archive differs from the device='cpu' archive")
-    log("[main] archive byte-identical to the device='cpu' archive")
 
     # -- 4: golden containers (recipe of tests/fixture_defs.py)
     gold_lines = list(generate_lines("HDFS", 400, seed=42))
@@ -2839,7 +3187,7 @@ def main() -> int:
     # -- 5: the ops-layer device path at real size
     t0 = time.perf_counter()
     spark = corpus_read(spark_writer, corpora / "spark.log")
-    log(f"[ops] {len(spark)} Spark lines, generated beside phase 3's device='cpu' compress, "
+    log(f"[ops] {len(spark)} Spark lines, generated beside the build and phase 2, "
         f"waited for and read in {time.perf_counter() - t0:.1f} s")
     ops_counts, ops_inputs, ops_device_ms = ops_phase(np, torch, profile, ProfilerActivity,
                                                       spark)
@@ -2855,11 +3203,24 @@ def main() -> int:
     # -- 6: the streaming containers and the query path at real size
     t0 = time.perf_counter()
     q_counts, q_inputs, q_device_ms, lzjf_inputs, chunk_inputs, session_codec = query_phase(
-        np, torch, profile, ProfilerActivity, lines, raw_bytes, fmt, blob, small)
+        np, torch, profile, ProfilerActivity, lines, fmt, blob, small)
     counts["distinct_counts"] = q_counts["distinct_counts"]
     device_ms["distinct_counts"] = q_device_ms["distinct_counts"]
     inputs["distinct_counts"] = q_inputs["distinct_counts"]
     log(f"[query] phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    # phase 3's device="cpu" twin, a process beside phases 3-6
+    t0 = time.perf_counter()
+    out, err = twin.communicate(timeout=900)
+    if twin.returncode != 0:
+        raise AssertionError(f"the device='cpu' compress failed: {err[-2000:]}")
+    cpu_blob = (corpora / "hdfs.cpu.lzj").read_bytes()
+    log(f"[main] device='cpu' archive in {float(out.split()[-1]):.2f} s, a process beside "
+        f"phases 3-6 (waited for {time.perf_counter() - t0:.1f} s)")
+    if cpu_blob != blob:
+        raise AssertionError("the card's archive differs from the device='cpu' archive")
+    log("[main] archive byte-identical to the device='cpu' archive")
+    (corpora / "hdfs.log").unlink()
 
     # -- 7: each kernel at the largest input the main paths gave it
     # the card's empty-launch floor: one device op on one element, timed as
@@ -3094,6 +3455,17 @@ def main() -> int:
     # -- 13: training qwen1.5-0.5b at full width, preempted and resumed
     t_stats = training_phase(np, torch, profile, ProfilerActivity, card)
     log(f"[train] {json.dumps(t_stats)}; {card}")
+
+    # -- 14: distribution: the rules, the sharded match and train step, the
+    # cost model, the dry run
+    x_stats = distribution_phase(np, torch, card, inputs["wildcard_match"])
+    row = next(r for r in rows if r["name"] == "wildcard_match")
+    row["launches_by_path"] = {"compress (phase 3)": row["launches"],
+                               "wildcard_match_sharded (phase 14)":
+                                   x_stats["sharded_match_launches"]}
+    row["launches"] += x_stats["sharded_match_launches"]
+    row["sharded_match_kernel_ms"] = x_stats["sharded_match_kernel_ms"]
+    log(f"[dist] {json.dumps({k: v for k, v in x_stats.items() if k != 'dryrun'})}; {card}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

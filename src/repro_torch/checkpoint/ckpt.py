@@ -16,11 +16,12 @@ writes:
   host before it returns (the port updates parameters in place, so a
   lazy snapshot would save a later step) and writes on a thread;
 - **exact**: ``extra`` (the data pipeline's state) rides in the manifest;
-- **GC**: keep the latest ``keep`` checkpoints.
-
-The reference's elastic restore (``load_checkpoint(shardings=)``, a
-re-shard onto any mesh) has no meaning on one card: ``load_checkpoint``
-takes the ``device`` to put the leaves on instead.
+- **GC**: keep the latest ``keep`` checkpoints;
+- **sharded**: a ``DTensor`` leaf is written as its whole tensor (every
+  rank gathers it, a collective, and rank 0 of the process group writes);
+  ``load_checkpoint(shardings=)`` places each leaf onto any mesh's
+  placements (elastic restart), as the reference's ``shardings=``
+  re-shards onto any mesh.
 """
 
 from __future__ import annotations
@@ -29,11 +30,23 @@ import json
 import os
 import shutil
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.ops import check_device
+
+
+@dataclass
+class Sharding:
+    """Where ``load_checkpoint`` puts a leaf: a ``DeviceMesh`` and the
+    ``DTensor`` placements on it (the counterpart of a ``NamedSharding``;
+    ``distributed.to_placements`` makes them from a spec)."""
+
+    device_mesh: object
+    placements: list
 
 
 def _flatten(tree, prefix=""):
@@ -71,10 +84,18 @@ def _unflatten(flat: dict):
 def _host(leaf) -> torch.Tensor:
     """A leaf (tensor, numpy array or number) as a contiguous CPU tensor of
     its own: a CPU tensor is copied too, so the caller may go on mutating
-    the original."""
+    the original. A ``DTensor`` is gathered whole first (a collective)."""
     if isinstance(leaf, torch.Tensor):
+        if type(leaf).__name__ == "DTensor":
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True).contiguous()
     return torch.from_numpy(np.array(leaf))
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the process
+    group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _raw(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -94,17 +115,22 @@ def _leaf(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: dict, extra: dict | None = None) -> str:
     """Blocking atomic save. ``tree`` maps names -> nested dicts / lists of
-    tensors, numpy arrays or numbers."""
+    tensors (``DTensor``-s too: every rank of their mesh calls this),
+    numpy arrays or numbers. Only rank 0 of a process group writes."""
+    final = os.path.join(ckpt_dir, f"step-{step:08d}")
+    flat = {path: leaf if isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu"
+            and type(leaf).__name__ != "DTensor" else _host(leaf)
+            for path, leaf in _flatten(tree).items()}
+    if not _writer():
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"step-{step:08d}.tmp")
-    final = os.path.join(ckpt_dir, f"step-{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "extra": extra or {}, "leaves": {}}
     arrays = {}
-    for i, (path, leaf) in enumerate(_flatten(tree).items()):
-        t = leaf if isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu" else _host(leaf)
+    for i, (path, t) in enumerate(flat.items()):
         key = f"a{i}"
         arrays[key], dtype = _raw(t.detach().contiguous())
         manifest["leaves"][path] = {"key": key, "shape": list(t.shape), "dtype": dtype}
@@ -130,11 +156,14 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def load_checkpoint(ckpt_dir: str, step: int | None = None, device="cuda"):
+def load_checkpoint(ckpt_dir: str, step: int | None = None, device="cuda", shardings=None):
     """Load (tree of tensors on ``device``, extra, step), the latest step
-    unless ``step``; (None, None, None) where there is none. ``device``
-    ("cuda" by default, which raises where there is no card) stands in for
-    the reference's ``shardings``: one card has nothing to re-shard."""
+    unless ``step``; (None, None, None) where there is none. ``device`` is
+    "cuda" by default, which raises where there is no card. ``shardings``,
+    a tree of ``Sharding`` leaves over the checkpoint's paths (a subtree
+    suffices), places each of its leaves as a ``DTensor`` on its mesh:
+    every rank keeps its own block of the whole tensor, whatever mesh
+    wrote it."""
     dev = check_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -146,6 +175,12 @@ def load_checkpoint(ckpt_dir: str, step: int | None = None, device="cuda"):
     with np.load(os.path.join(d, "arrays.npz")) as data:
         for path, info in manifest["leaves"].items():
             flat[path] = _leaf(data[info["key"]], info["dtype"], info["shape"]).to(dev)
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        for path, sh in _flatten(shardings).items():
+            flat[path] = distribute_tensor(flat[path], sh.device_mesh, sh.placements,
+                                           src_data_rank=None)
     return _unflatten(flat), manifest["extra"], step
 
 
@@ -167,6 +202,9 @@ class CheckpointManager:
         self.wait()  # at most one outstanding write
         # every leaf copied to the host *now*, so training can mutate freely
         host_tree = _unflatten({p: _host(a) for p, a in _flatten(tree).items()})
+        if not _writer():  # it took part in the gathers; rank 0 writes
+            self.last_saved = step
+            return
 
         def work():
             save_checkpoint(self.dir, step, host_tree, extra)

@@ -27,16 +27,18 @@ from . import wildcard_match as _wm
 from .wildcard_match import STAR_ID
 
 
-def check_device(device) -> torch.device:
+def check_device(device, meta_ok: bool = False) -> torch.device:
     """``device`` as a ``torch.device``; raises when it is a CUDA device
-    and no card is present, or when it is neither CUDA nor CPU."""
+    and no card is present, or when it is neither CUDA nor CPU (nor, with
+    ``meta_ok``, ``"meta"``: shapes without storage, which the dry run
+    builds a model and its cache on)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device={str(device)!r} was asked for but no CUDA device is available "
                 "(pass device='cpu' to run the kernels' plain torch versions)")
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (meta_ok and dev.type == "meta"):
         raise ValueError(f"device must be a CUDA device or 'cpu', got {str(device)!r}")
     return dev
 
@@ -81,6 +83,47 @@ def wildcard_match(logs, lens, templates, t_lens, *, device="cuda") -> np.ndarra
     out = _wm.wildcard_match(*args).cpu().numpy()
     # the host truncation rule: a line longer than the grid never matches
     return out & (lens_np <= logs.shape[1])[:, None]
+
+
+def wildcard_match_sharded(logs, lens, templates, t_lens, mesh, axis: str = "data"):
+    """Pod-scale matching: lines sharded over the mesh axis ``axis``,
+    templates replicated -> the (N, K) bool match matrix as a ``DTensor``
+    sharded over ``axis`` (row-wise), replicated over the other axes.
+
+    Pure data parallelism, as the reference's ``shard_map``: each rank
+    takes its block of rows (its coordinate along ``axis``), launches
+    ``wildcard_match_kernel`` on them (on a CUDA mesh; the plain version
+    on a CPU mesh) and wraps its rows; the match itself issues no
+    collective. ``mesh`` is a ``DeviceMesh`` (``launch.mesh``); its device
+    type is the device, so a CUDA mesh raises where there is no card.
+    Rows that do not divide by the axis raise ``ValueError``, as
+    ``shard_map`` refuses an uneven split."""
+    dev = check_device(mesh.device_type)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh has no axis {axis!r} (its axes: {names})")
+    dim = names.index(axis)
+    k = mesh.size(dim)
+    logs = np.asarray(logs, np.int32)
+    lens_np = np.asarray(lens, np.int32).reshape(-1)
+    n = logs.shape[0]
+    if n % k:
+        raise ValueError(f"{n} lines do not split evenly over the {k} ranks of {axis!r}")
+    part = n // k
+    lo = mesh.get_local_rank(dim) * part
+    rows = slice(lo, lo + part)
+    args = (_to(dev, logs[rows]), _to(dev, lens_np[rows]), _to(dev, templates),
+            _to(dev, np.asarray(t_lens, np.int32).reshape(-1)))
+    if input_hook is not None:
+        input_hook("wildcard_match", args)
+    local = _wm.wildcard_match(*args)
+    local &= (args[1] <= logs.shape[1])[:, None]  # the host truncation rule
+    placements = [Shard(0) if i == dim else Replicate() for i in range(mesh.ndim)]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size((n, local.shape[1])),
+                              stride=(local.shape[1], 1))
 
 
 def pack_templates(templates: list[np.ndarray], t_max: int | None = None) -> tuple[np.ndarray, np.ndarray]:

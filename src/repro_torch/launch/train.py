@@ -18,10 +18,19 @@ default, which fails where there is no card). Fault-tolerance contract:
 - a restart resumes the parameters, AdamW's state and the data
   cursor (sample-exact).
 
-One card holds the whole model: ``--model-parallel`` above 1 (the
-reference's tensor-parallel mesh) is refused until the sharding port
-(ROADMAP A.2). ``main(argv)`` returns the run's per-step losses and
-seconds, for callers in the same process.
+Over several processes (``WORLD_SIZE`` > 1 with ``RANK``, ``MASTER_ADDR``
+and ``MASTER_PORT`` in the environment, as ``torchrun`` sets them, or a
+process group the caller initialised) the run is sharded as the
+reference's is over its devices: a ``(world // --model-parallel,
+--model-parallel)`` ("data", "model") mesh (``launch.mesh.
+make_local_mesh``), installed for the activation constraints, the heads
+padded to it (``tp_pad``), the parameters and AdamW's moments placed by
+``distributed.param_pspecs`` and each batch by ``batch_pspecs``; NCCL
+on "cuda", gloo on "cpu". Every rank draws the same init and reads the
+same batches; rank 0 writes the shards and the checkpoints (whole
+tensors, the reference's format) and prints. One process has no mesh.
+``main(argv)`` returns the run's per-step losses and seconds, for
+callers in the same process.
 """
 
 from __future__ import annotations
@@ -33,6 +42,21 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
+
+
+def _init_group(dev: torch.device) -> None:
+    """Join the process group the environment describes, once."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized() or world < 2:
+        return
+    rank = int(os.environ["RANK"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count())))
+    addr = os.environ.get("MASTER_ADDR", "localhost")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://{addr}:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=world)
 
 
 def main(argv=None) -> dict:
@@ -51,9 +75,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails where there is no card) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        ap.error(f"--model-parallel {args.model_parallel}: one card holds the whole model; "
-                 "tensor parallelism waits for the sharding port (ROADMAP A.2)")
 
     from ..checkpoint.ckpt import CheckpointManager
     from ..configs import get_config
@@ -61,8 +82,17 @@ def main(argv=None) -> dict:
     from ..core.ise import ISEConfig
     from ..data.loggen import DATASETS, generate_lines
     from ..data.pipeline import BYTE_VOCAB, TokenBatcher, write_logzip_shards
+    from ..distributed.act_shard import install_mesh
+    from ..distributed.sharding import (
+        batch_pspecs,
+        param_pspecs,
+        shard_batch,
+        shard_model,
+        shard_opt_state,
+    )
     from ..kernels.ops import check_device
-    from ..models import init_params
+    from ..launch.mesh import make_local_mesh
+    from ..models import init_params, tp_pad
     from ..optim.adamw import AdamWHyper, adamw_init, cosine_schedule
     from ..train.steps import load_train_state, make_train_step, train_state
 
@@ -71,17 +101,38 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced(vocab_size=BYTE_VOCAB, attn_chunk_k=max(64, args.seq // 4))
 
+    _init_group(dev)
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_local_mesh(args.model_parallel, device=args.device)
+        install_mesh(mesh)
+        cfg = tp_pad(cfg, args.model_parallel)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
+    if mesh is not None:
+        say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
     shard_dir = os.path.join(args.workdir, "shards")
-    if not os.path.exists(os.path.join(shard_dir, "manifest.json")):
+    if lead and not os.path.exists(os.path.join(shard_dir, "manifest.json")):
         write_logzip_shards(
             generate_lines(args.dataset, 40000, seed=0), shard_dir, shard_lines=8000,
             cfg=LogzipConfig(level=3, format=DATASETS[args.dataset]["format"],
                              ise=ISEConfig(min_sample=300), device=args.device),
         )
+    if mesh is not None:
+        dist.barrier()
     batcher = TokenBatcher(shard_dir, mode="bytes", seed=0, device=dev)
 
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     opt = adamw_init(model)
+    if mesh is not None:
+        specs = param_pspecs(model, cfg, mesh)
+        shard_model(model, mesh, specs)
+        opt = shard_opt_state(opt, mesh, specs)
     step_fn = make_train_step(cfg, AdamWHyper(lr=args.lr), microbatches=args.microbatches,
                               lr_fn=cosine_schedule(args.lr, 20, args.steps))
 
@@ -92,7 +143,7 @@ def main(argv=None) -> dict:
         opt = load_train_state(model, tree)
         batcher.load_state_dict(extra["data"])
         start = s
-        print(f"resumed from step {s} (sample-exact)", flush=True)
+        say(f"resumed from step {s} (sample-exact)")
     del tree
 
     stop = {"now": False}
@@ -101,6 +152,14 @@ def main(argv=None) -> dict:
         print(f"signal {sig}: checkpointing and exiting...", flush=True)
         stop["now"] = True
 
+    def stopping() -> bool:
+        """Whether any rank was signalled (every rank stops at one step)."""
+        if mesh is None:
+            return stop["now"]
+        flag = torch.tensor([float(stop["now"])], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     handlers = {sig: signal.signal(sig, handle) for sig in (signal.SIGTERM, signal.SIGINT)}
     run = {"start": start, "losses": [], "step_seconds": [], "ckpt_seconds": None}
     try:
@@ -108,31 +167,36 @@ def main(argv=None) -> dict:
         for step in range(start, args.steps):
             ts = time.perf_counter()
             batch = batcher.next_batch(args.batch, args.seq)
+            if mesh is not None:
+                batch = shard_batch(batch, mesh, batch_pspecs(batch, mesh))
             model, opt, m = step_fn(model, opt, batch)
             loss = float(m["loss"])  # waits for the step
             run["step_seconds"].append(time.perf_counter() - ts)
             run["losses"].append(loss)
             if step % 10 == 0 or step == args.steps - 1:
                 tok_s = args.batch * args.seq * (step - start + 1) / max(time.time() - t0, 1e-9)
-                print(f"step {step:5d}  loss {loss:.3f}  {tok_s:,.0f} tok/s", flush=True)
-            if stop["now"] or (step and step % args.ckpt_every == 0):
+                say(f"step {step:5d}  loss {loss:.3f}  {tok_s:,.0f} tok/s")
+            now = stopping()
+            if now or (step and step % args.ckpt_every == 0):
                 mgr.wait()
                 mgr.save_async(step + 1, train_state(model, opt),
                                extra={"data": batcher.state_dict()})
-                if stop["now"]:
+                if now:
                     mgr.wait()
-                    print(f"preemption checkpoint at step {step + 1} complete", flush=True)
+                    say(f"preemption checkpoint at step {step + 1} complete")
                     sys.exit(0)
         tc = time.perf_counter()
         mgr.save_async(args.steps, train_state(model, opt),
                        extra={"data": batcher.state_dict()})
         mgr.wait()
         run["ckpt_seconds"] = time.perf_counter() - tc
-        print(f"done: {args.steps} steps in {time.time()-t0:.0f}s", flush=True)
+        say(f"done: {args.steps} steps in {time.time()-t0:.0f}s")
     finally:
         mgr.wait()
         for sig, h in handlers.items():
             signal.signal(sig, h)
+        if mesh is not None:
+            install_mesh(None)
     return run
 
 

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.act_shard import shard_act
+
 NEG_INF = -1e30
 
 
@@ -119,6 +121,7 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     q2 = q.reshape(b, kv, g, hd).float()
     kc = k_cache.float().permute(0, 2, 3, 1)                     # (B, KV, hd, S)
     s = (q2 @ kc) * hd ** -0.5                                   # (B, KV, g, S)
+    s = shard_act(s, ("batch", None, None, "model"))  # keep S sharded
     mask = torch.arange(s_len, device=q.device)[None, :] < kv_len[:, None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.act_shard import shard_act
+
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv via shifted adds. u: (B, L, di), w: (dc, di)."""
@@ -62,6 +64,8 @@ def mamba_seq(x: torch.Tensor, p, cfg, h0=None):
     b, l, _ = x.shape
     di, ds = cfg.d_inner, cfg.ssm_state
     u_pre, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    u_pre = shard_act(u_pre, ("batch", None, "model"))
+    z = shard_act(z, ("batch", None, "model"))
     u = F.silu(_causal_conv(u_pre, p["conv_w"], p["conv_b"]))
     dt, bmat, cmat = _ssm_inputs(u, p, cfg)
 
@@ -72,6 +76,8 @@ def mamba_seq(x: torch.Tensor, p, cfg, h0=None):
     for c0 in range(0, l, cl):
         part = slice(c0, c0 + cl)
         decay, inject = _decay_inject(dt[:, part], u[:, part], bmat[:, part], p["A_log"])
+        decay = shard_act(decay, ("batch", None, "model", None))
+        inject = shard_act(inject, ("batch", None, "model", None))
         a_pref, b_pref = _prefix_scan(decay, inject)
         hs = a_pref * h[:, None] + b_pref                            # (B, cl, di, ds)
         ys.append((hs * cmat[:, part].float()[:, :, None, :]).sum(-1))

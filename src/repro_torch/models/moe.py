@@ -11,14 +11,17 @@ Both drop the slots past capacity (a slot's rank counts token-major,
 then k) and renormalize the top-k gates, as the reference does; a
 decode step of a few tokens has a capacity of 1 on most configs, so it
 drops slots there too. Every expert runs on its (E, C) buffer whatever
-the routing. The products are ``torch.matmul``; the port has no mesh,
-so the reference's ``shard_act`` calls are dropped.
+the routing. The products are ``torch.matmul``. The reference's
+``shard_act`` calls around the einsum dispatch's expert FFN stand at its
+sites (no-ops unless a mesh is installed).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.act_shard import shard_act
 
 
 def _router(x: torch.Tensor, wg: torch.Tensor, top_k: int):
@@ -83,7 +86,9 @@ def moe_ffn(x: torch.Tensor, params, *, top_k: int, capacity_factor: float, act:
             disp = disp + m
             comb = comb + m * gates_g[:, :, kk, None, None]
         xin = torch.einsum("gnec,gnd->gecd", disp, xg)                # (G, E, C, d)
-        hout = _expert_ffn(xin.transpose(0, 1).reshape(e, ng * cap, d), params, act)
+        # expert dim over "model", capacity slots over "batch" (data)
+        xin = shard_act(xin.transpose(0, 1).reshape(e, ng * cap, d), ("model", "batch", None))
+        hout = shard_act(_expert_ffn(xin, params, act), ("model", "batch", None))
         hout = hout.reshape(e, ng, cap, d).transpose(0, 1)            # (G, E, C, d)
         out = torch.einsum("gnec,gecd->gnd", comb, hout).reshape(n, d)
     else:  # sort-based gather/scatter dispatch

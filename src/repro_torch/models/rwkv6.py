@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.act_shard import shard_act
+
 CLAMP = -30.0
 
 
@@ -40,13 +42,13 @@ def _projections(x, xprev, p, cfg):
     def mix(mu):
         return x * mu + xprev * (1 - mu)
 
-    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(b, l, h, hd)
-    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(b, l, h, hd)
-    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(b, l, h, hd)
-    g = F.silu(mix(p["mu_g"]) @ p["w_g"])
+    r = shard_act((mix(p["mu_r"]) @ p["w_r"]).reshape(b, l, h, hd), ("batch", None, "model", None))
+    k = shard_act((mix(p["mu_k"]) @ p["w_k"]).reshape(b, l, h, hd), ("batch", None, "model", None))
+    v = shard_act((mix(p["mu_v"]) @ p["w_v"]).reshape(b, l, h, hd), ("batch", None, "model", None))
+    g = shard_act(F.silu(mix(p["mu_g"]) @ p["w_g"]), ("batch", None, "model"))
     dec = p["w_decay0"] + (torch.tanh(mix(p["mu_w"]) @ p["w_decay1"]) @ p["w_decay2"]).float()
     logw = -torch.exp(dec)                  # log decay in (-inf, 0)
-    return r, k, v, g, logw.reshape(b, l, h, hd)
+    return r, k, v, g, shard_act(logw.reshape(b, l, h, hd), ("batch", None, "model", None))
 
 
 def _group_norm(o: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -75,6 +77,8 @@ def _chunk(s, rr, kk, vv, ww, u):
     lend = lcum[:, -1]                                              # (B, H, hd)
     s_new = torch.exp(lend)[..., None] * s + torch.einsum(
         "bshc,bshd->bhcd", k_tld * torch.exp(lend)[:, None], vv)
+    s_new = shard_act(s_new, ("batch", "model", None, None))
+    o = shard_act(o, ("batch", None, "model", None))
     return s_new, o
 
 

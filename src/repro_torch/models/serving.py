@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.act_shard import shard_act
 from ..kernels.ops import check_device
 from . import mamba, rwkv6
 from .config import ModelConfig
@@ -37,6 +38,7 @@ from .transformer import (
     _cross_attn,
     _cross_kv,
     embed_inputs,
+    embed_tokens,
     _encoder_forward,
     _ffn_seq,
     _mixer_seq,
@@ -46,7 +48,7 @@ from .transformer import (
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda") -> dict:
     """An empty cache: every state zero, ``pos`` zero."""
-    dev = check_device(device)
+    dev = check_device(device, meta_ok=True)
     dt = _dtype(cfg)
 
     def zeros(*shape, dtype=dt):
@@ -81,11 +83,8 @@ def prefill_sublayer(x, sub: Sublayer, cfg: ModelConfig, positions, max_len: int
     y, state = _mixer_seq(rms_norm(x, sub.ln1, cfg.norm_eps), sub, cfg, positions)
     x = x + y
     if sub.kind == "attn":
-        for name in ("k", "v"):
-            full = torch.zeros((b, max_len, *state[name].shape[2:]), dtype=state[name].dtype,
-                               device=x.device)
-            full[:, :s] = state[name]
-            state[name] = full
+        for name in ("k", "v"):  # (B, s, KV, hd) -> (B, max_len, KV, hd), zeros after s
+            state[name] = F.pad(state[name], (0, 0, 0, 0, 0, max_len - s))
     y, _, more = _ffn_seq(rms_norm(x, sub.ln2, cfg.norm_eps), sub, cfg)
     state.update(more)
     return x + y, state
@@ -103,6 +102,7 @@ def prefill(model: Transformer, batch: dict, max_len: int):
     memory = _encoder_forward(model, batch["frames"]) if cfg.n_enc_layers else None
     blocks, xattn = [], []
     for i, block in enumerate(model.blocks):
+        x = shard_act(x, ("batch", None, None))
         caches = {}
         for j in range(cfg.block_period):
             x, caches[f"sub{j}"] = prefill_sublayer(x, block[f"sub{j}"], cfg, positions,
@@ -165,7 +165,7 @@ def decode_step(model: Transformer, cache: dict, tokens):
     """One token for every sequence. tokens: (B, 1) -> (logits, the new
     cache: ``cache``'s states, updated in place, and ``pos + 1``)."""
     cfg = model.cfg
-    x = model.embed[torch.as_tensor(tokens, device=model.device).long()]  # (B, 1, d)
+    x = embed_tokens(model, tokens)                             # (B, 1, d)
     b = x.shape[0]
     pos = cache["pos"]                                          # (B,)
     positions = pos[:, None]
@@ -185,6 +185,7 @@ def decode_step(model: Transformer, cache: dict, tokens):
         x_len = torch.full((b,), cache["xattn"][0]["k"].shape[1], dtype=torch.int32,
                            device=x.device)
     for i, (block, bc) in enumerate(zip(model.blocks, cache["blocks"])):
+        x = shard_act(x, ("batch", None, None))
         for j in range(cfg.block_period):
             x = decode_sublayer(x, block[f"sub{j}"], bc[f"sub{j}"], cfg, positions, at, kv_len)
         if x_len is not None:

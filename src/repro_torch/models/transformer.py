@@ -11,8 +11,9 @@ construction. Parameter names follow the reference's tree
 (``blocks.<i>.sub<j>.attn.wq`` is
 ``params["blocks"]["sub<j>"]["attn"]["wq"][i]``; ``encoder.<i>.ffn.w1``
 and ``xattn.<i>.lnx`` likewise), which is what ``models.weights``
-carries across. The port has no mesh, so the reference's ``shard_act``
-calls are dropped.
+carries across. The reference's ``shard_act`` calls stand at its sites:
+no-ops unless a mesh is installed (``distributed.act_shard``), where a
+``DTensor`` activation is redistributed to the spec's placements.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..distributed.act_shard import shard_act
 from ..kernels.ops import check_device
 from . import mamba, rwkv6
 from .config import ModelConfig
@@ -161,7 +164,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        dev = check_device(device)
+        dev = check_device(device, meta_ok=True)
         period = cfg.block_period
         if cfg.n_layers % period:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of the block period "
@@ -270,6 +273,9 @@ def _attn_qkv(x, p, cfg: ModelConfig, positions):
     if cfg.family != "audio":  # whisper uses absolute positions, no rope
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_act(q, ("batch", None, "model", None))
+    k = shard_act(k, ("batch", None, "model", None))
+    v = shard_act(v, ("batch", None, "model", None))
     return q, k, v
 
 
@@ -308,6 +314,29 @@ def _ffn_seq(h2, sub: Sublayer, cfg: ModelConfig):
 
 # -------------------------------------------------------------- embeddings
 
+def _sharded(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` (a model placed on a mesh)."""
+    return type(t).__name__ == "DTensor"
+
+
+def embed_tokens(model: Transformer, tokens) -> torch.Tensor:
+    """The embedding rows of ``tokens``. A plain table is indexed. A
+    sharded table has its model dim gathered first (the FSDP all-gather of
+    a weight) and takes ``F.embedding``, which DTensor runs vocab-parallel
+    over the vocab's shards (indexing's backward sums in another order, so
+    the plain table keeps it)."""
+    tokens = torch.as_tensor(tokens, device=model.device).long()
+    table = model.embed
+    if not _sharded(table):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate
+
+    whole_rows = [Replicate() if p.is_shard(1) else p for p in table.placements]
+    if whole_rows != list(table.placements):  # (a no-op one would reduce its gradient)
+        table = table.redistribute(table.device_mesh, whole_rows)
+    return F.embedding(tokens, table)
+
+
 def _sin_pos(n: int, d: int) -> np.ndarray:
     """Sine positions (n, d): float64 on the host, as the reference
     computes them, cast to fp32 as it does."""
@@ -328,8 +357,7 @@ def embed_inputs(model: Transformer, batch: dict):
     """tokens (+ the VLM's ``vision`` prefix) -> (x (B, S, d), positions
     (B, S)); the audio family adds sine positions."""
     cfg = model.cfg
-    tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = model.embed[tokens.long()]
+    x = embed_tokens(model, batch["tokens"])
     if cfg.n_patches and "vision" in batch:
         vision = torch.as_tensor(batch["vision"], device=model.device)
         x = torch.cat([vision.to(x.dtype), x], dim=1)
@@ -374,6 +402,7 @@ def _block(x, aux, block, xp, model: Transformer, positions, memory):
     """One block's sub-layers (and, with an encoder, the cross-attention
     after them) -> (x, aux)."""
     cfg = model.cfg
+    x = shard_act(x, ("batch", None, None))
     for j in range(cfg.block_period):
         sub = block[f"sub{j}"]
         x = x + _mixer_seq(rms_norm(x, sub.ln1, cfg.norm_eps), sub, cfg, positions)[0]
@@ -381,6 +410,7 @@ def _block(x, aux, block, xp, model: Transformer, positions, memory):
         x = x + y
         if a is not None:
             aux = aux + a
+        x = shard_act(x, ("batch", None, None))
     if memory is not None:
         h = rms_norm(x, xp.lnx, cfg.norm_eps)
         x = x + _cross_attn(h, xp.xattn, cfg, *_cross_kv(memory, xp.xattn, cfg))
@@ -398,6 +428,7 @@ def _forward(model: Transformer, batch: dict, return_hidden: bool = False):
     are the same either way."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
+    x = shard_act(x, ("batch", None, None))
     memory = _encoder_forward(model, batch["frames"]) if cfg.n_enc_layers else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -411,7 +442,10 @@ def _forward(model: Transformer, batch: dict, return_hidden: bool = False):
     x = rms_norm(x, model.ln_f, cfg.norm_eps)
     if return_hidden:
         return x, aux
-    return x @ model.unembedding(), aux
+    # gather the FSDP-sharded d dim of the unembedding once (a weight
+    # all-gather) instead of reducing the (B, S, V) activations
+    unembed = shard_act(model.unembedding(), (None, "model"))
+    return shard_act(x @ unembed, ("batch", None, "model")), aux
 
 
 @torch.inference_mode()
@@ -421,6 +455,14 @@ def forward(model: Transformer, batch: dict):
     and records no graph; ``loss_fn`` takes the same forward with the
     graph."""
     return _forward(model, batch)
+
+
+def _label_logit(logits, labels):
+    """``logits[..., labels]`` (B, S). Gathered from vocab-sharded logits,
+    DTensor holds a masked partial sum; it is reduced (``shard_act``, a
+    no-op on plain tensors) while it still has the gather's rank."""
+    pick = shard_act(logits.gather(-1, labels[..., None]), ("batch", None, None))
+    return pick[..., 0]
 
 
 def _chunked_lse_ll(x, unembed, labels, chunk: int):
@@ -442,7 +484,7 @@ def _chunked_lse_ll(x, unembed, labels, chunk: int):
         se = se * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(dim=-1)
         local = lab - ci * chunk
         inside = (local >= 0) & (local < chunk)
-        pick = lg.gather(-1, local.clamp(0, chunk - 1)[..., None])[..., 0]
+        pick = _label_logit(lg, local.clamp(0, chunk - 1))
         ll = torch.where(inside, pick, ll)
         m = m_new
     return m + torch.log(torch.clamp(se, min=1e-30)), ll
@@ -467,7 +509,7 @@ def loss_fn(model: Transformer, batch: dict):
         logits, aux = _forward(model, batch)
         logits32 = logits.float()
         lse = torch.logsumexp(logits32, dim=-1)
-        ll = logits32.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        ll = _label_logit(logits32, labels.clamp(min=0))
     mask = (labels >= 0).float()
     denom = torch.clamp(mask.sum(), min=1.0)
     nll = ((lse - ll) * mask).sum() / denom

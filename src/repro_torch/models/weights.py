@@ -92,6 +92,18 @@ def reference_ndims(model: Transformer) -> dict[str, int]:
             for p, name, _, group, _ in _paths(model)}
 
 
+def reference_paths(model: Transformer) -> dict[str, tuple[list[str], int]]:
+    """Parameter name -> (its path in the reference tree, the length of
+    the leading axis the reference stacks it on, 0 where it is not
+    stacked): ``blocks.3.sub0.attn.wq`` -> (["blocks", "sub0", "attn",
+    "wq"], n_blocks). The sharding rules read a leaf's name and parent
+    from the path, and ZeRO-1 the stacked shape."""
+    cfg = model.cfg
+    return {name: (path, len(getattr(model, group))
+                   if group is not None and _stacked(cfg, group) else 0)
+            for _, name, path, group, _ in _paths(model)}
+
+
 def stack(model: Transformer, tensors: dict) -> dict:
     """``{parameter name: tensor}`` (the parameters, their gradients or
     AdamW moments) -> the reference's tree of them: each stacked group's

@@ -304,10 +304,29 @@ def test_launcher_preempted_and_resumed_equals_uninterrupted(tmp_path):
     assert kept == [f"step-{k1:08d}", f"step-{STEPS:08d}"]
 
 
-def test_launcher_refuses_model_parallel(tmp_path, capsys):
-    from repro_torch.launch.train import main
+def test_launcher_refuses_model_parallel(tmp_path):
+    """Since the sharding port the launcher lays ``--model-parallel`` out
+    over its process group (``tests/test_torch_distributed.py`` trains
+    that way); it refuses a width that does not divide the group's ranks,
+    on every rank, before it writes anything."""
+    import socket
 
-    with pytest.raises(SystemExit):
-        main(["--workdir", str(tmp_path), "--device", "cpu", "--model-parallel", "2"])
-    assert "ROADMAP A.2" in capsys.readouterr().err
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--workdir",
+         str(tmp_path), "--device", "cpu", "--model-parallel", "3"],
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode != 0
+        assert "2 ranks do not split into model-parallel groups of 3" in err, err[-2000:]
     assert not os.path.exists(tmp_path / "shards")

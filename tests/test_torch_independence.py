@@ -6,6 +6,7 @@ import io
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,7 @@ from repro_torch.core.ise import iterative_structure_extraction
 from repro_torch.core.match import match_first
 from repro_torch.data import pipeline
 from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, mesh
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import weights
 
@@ -79,6 +81,24 @@ with tempfile.TemporaryDirectory() as d:
     again = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     assert int(load_train_state(again, tree)["step"]) == 1 and step == 1
     assert all(torch.equal(p, q) for p, q in zip(model.parameters(), again.parameters()))
+# distribution: the rules at full width, a traced product's cost, the dry
+# run's counts, and a sharded match on a fake mesh of 4 ranks
+import numpy as np
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.distributed.sharding import AbstractMesh, param_pspecs
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, hlo_cost
+from repro_torch.models import Transformer
+big = get_config("qwen1.5-0.5b")
+specs = param_pspecs(Transformer(big, "meta"), big, AbstractMesh((16, 16), ("data", "model")))
+assert specs["embed"] == ("model", "data")
+assert hlo_cost.analyze(lambda a: a @ a, torch.ones(8, 8))["flops"] == 2 * 8 ** 3
+assert dryrun.analytic_params(big)["total"] > 4e8
+dryrun.fake_group(4)
+m4 = DeviceMesh("cpu", torch.arange(4).reshape(4, 1), mesh_dim_names=("data", "model"))
+hit = ops.wildcard_match_sharded(np.full((8, 3), 5, np.int32), np.full(8, 3, np.int32),
+                                 np.array([[5, 1, 0]], np.int32), np.array([2], np.int32), m4)
+assert tuple(hit.to_local().shape) == (2, 1) and bool(hit.to_local().all())
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 print("OK", len(names), len(blob))
@@ -156,6 +176,18 @@ def _entry_points():
         "load_checkpoint": lambda: checkpoint.load_checkpoint(os.devnull),
         "CheckpointManager.restore": lambda: checkpoint.CheckpointManager(os.devnull).restore(),
         "launch.train": lambda: train_launcher.main(["--workdir", os.devnull + "/x"]),
+        "launch.train[model-parallel]": lambda: train_launcher.main(
+            ["--workdir", os.devnull + "/x", "--model-parallel", "2"]),
+        # distribution: meshes, the sharded match on a CUDA mesh, the dry run
+        "make_local_mesh": lambda: mesh.make_local_mesh(2),
+        "make_production_mesh": lambda: mesh.make_production_mesh(multi_pod=True),
+        "wildcard_match_sharded": lambda: ops.wildcard_match_sharded(
+            ids, lens, np.array([[2, 1]], np.int32), np.array([2], np.int32),
+            types.SimpleNamespace(device_type="cuda", mesh_dim_names=("data",))),
+        "dryrun.main": lambda: dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k",
+                                            "--out", os.devnull + "/x"]),
+        "dryrun.run_cell": lambda: dryrun.run_cell("whisper-base", "prefill_32k", "multi",
+                                                   os.devnull + "/x"),
     }
 
 
