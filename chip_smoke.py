@@ -138,6 +138,17 @@ Phases, each of which raises on failure:
    card beside the measured ms; (e) the production dry-run cell
    (qwen1.5-0.5b x train_4k x 16 x 16, a fake group of 256 ranks) as a
    process, beside (a)-(d): memory per rank against 80 GB, cost terms.
+15. the sharded decode path: (a) ``qwen3-1.7b`` at full width in fp32 on
+   a one-rank NCCL mesh, a prefill and 8 decode steps as DTensors (the
+   cache placed by ``cache_pspecs``) against the plain ``prefill`` /
+   ``decode_step`` on the same tokens: logits within ``DECODE_REL`` of the
+   largest |logit|, the caches equal, every cache leaf's placements as
+   they came in after every step, ms a step of each; (b) three production
+   dry-run cells (qwen2-7b x decode_32k, jamba-v0.1-52b x long_500k,
+   qwen2-7b x prefill_32k, each on the (16, 16) mesh of 256 fake ranks)
+   as one process started beside phase 14: memory per rank against 80 GB,
+   the roofline terms, the collectives, and no all-gather of a cache
+   block. The decode path reaches no CUDA kernel of the port.
    Then print the ``kernels`` line (row 1a's launches are phase 3's and
    phase 14's) and the result line.
 
@@ -241,6 +252,16 @@ TRAIN_TWIN_REL = 1e-4  # (b): fp32 on the card against the CPU, of the largest |
 DIST_ARCH = TRAIN_ARCH
 DRYRUN_CELL = ("qwen1.5-0.5b", "train_4k", "single")
 DRYRUN_TIMEOUT = 300.0  # seconds the dry-run process may take beyond (a)-(d)
+# phase 15: the sharded decode path. (a) serves SERVE_ARCH on a one-rank
+# mesh: DECODE_BATCH prompts of DECODE_PROMPT tokens into a cache of
+# DECODE_CAP, then DECODE_STEPS steps on fixed tokens (seed DECODE_SEED);
+# (b) dry-runs DECODE_CELLS as one process beside phases 14 and 15 (a)
+DECODE_BATCH, DECODE_PROMPT, DECODE_CAP, DECODE_STEPS = 4, 32, 64, 8
+DECODE_SEED = 15
+DECODE_REL = 1e-5  # (a): DTensor against plain, of the largest |logit|
+DECODE_CELLS = [("qwen2-7b", "decode_32k", "single"), ("jamba-v0.1-52b", "long_500k", "single"),
+                ("qwen2-7b", "prefill_32k", "single")]
+DECODE_DRYRUN_TIMEOUT = 420.0  # seconds the cells may take beyond phases 14 and 15 (a)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 # 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock,
@@ -2333,6 +2354,215 @@ def _dryrun_process(out_dir: Path):
         stderr=subprocess.PIPE, text=True)
 
 
+_CELLS = r"""
+import subprocess, sys
+out = sys.argv[1]
+for arch, shape, mesh in zip(*[iter(sys.argv[2:])] * 3):  # a process a cell
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                        "--shape", shape, "--mesh", mesh, "--device", "cuda", "--out", out],
+                       capture_output=True, text=True)
+    print(f"cell {arch} {shape} {mesh}: exit {p.returncode}", flush=True)
+    if p.returncode:
+        sys.stderr.write(p.stdout[-1000:] + p.stderr[-3000:])
+        sys.exit(1)
+"""
+
+
+def _decode_cells_process(out_dir: Path):
+    """Phase 15 (b): ``DECODE_CELLS`` as one process, a child a cell (the
+    fake process group is process-wide)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _CELLS, str(out_dir)] + [x for c in DECODE_CELLS for x in c],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _cache_leaves(cache) -> list:
+    """A decode cache's leaves (or its specs'), in tree order."""
+    if isinstance(cache, dict):
+        return [t for k in cache for t in _cache_leaves(cache[k])]
+    if isinstance(cache, list):
+        return [t for v in cache for t in _cache_leaves(v)]
+    return [cache]
+
+
+def decode_phase(np, torch, card: str, cells, cells_dir: Path, t_cells: float) -> dict:
+    """Phase 15: the sharded decode path -> the phase's figures.
+
+    (a) ``SERVE_ARCH`` at full width in fp32 (TF32 off), one set of
+    weights: ``DECODE_BATCH`` prompts of ``DECODE_PROMPT`` tokens (seed
+    ``DECODE_SEED``) prefilled into a cache of ``DECODE_CAP`` and
+    ``DECODE_STEPS`` decode steps on fixed tokens, plain; then the same
+    weights as DTensors on a one-rank NCCL mesh (``param_pspecs``, the
+    mesh installed), the prompt placed by ``batch_pspecs``, the prefill's
+    cache placed by ``cache_pspecs`` (``shard_cache``), each step's tokens
+    placed likewise. Every step's logits within ``DECODE_REL`` of the
+    plain step's largest |logit|, the final caches ``torch.equal`` leaf
+    for leaf, every leaf's placements after every step those it came in
+    with (``to_placements(cache_pspecs(...))``); the prefill's and each
+    step's seconds of both. (b) ``cells`` (the ``DECODE_CELLS`` process
+    started beside phase 14) collected: each artifact's memory per rank
+    against 80 GB, roofline terms, collectives, and ``cache_all_gathers``
+    0."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.act_shard import install_mesh
+    from repro_torch.distributed.sharding import (
+        batch_pspecs,
+        cache_pspecs,
+        param_pspecs,
+        shard_batch,
+        shard_cache,
+        shard_model,
+        to_placements,
+    )
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import decode_step, init_params, prefill
+
+    t_phase = time.perf_counter()
+    stats = {}
+    try:
+        # (a) the sharded decode on a one-rank mesh against the plain one
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 matmuls are on: fp32 parity would not hold")
+        dev = torch.device("cuda")
+        cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+        rng = np.random.default_rng(DECODE_SEED)
+        toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (
+            DECODE_BATCH, DECODE_PROMPT + DECODE_STEPS)).astype(np.int32)).to(dev)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED),
+                            device=dev)
+
+        def run(place_batch, place_cache, check):
+            """Prefill and the decode steps -> (logits on the host, the
+            cache, the prefill's and every step's seconds)."""
+            pre = place_batch({"tokens": toks[:, :DECODE_PROMPT]})["tokens"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = prefill(model, {"tokens": pre}, DECODE_CAP)
+            cache = place_cache(cache)
+            torch.cuda.synchronize()
+            secs = [time.perf_counter() - t0]
+            got = [lg]
+            for t in range(DECODE_PROMPT, DECODE_PROMPT + DECODE_STEPS):
+                tok = place_batch({"tokens": toks[:, t:t + 1]})["tokens"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = decode_step(model, cache, tok)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                check(cache)
+                got.append(lg)
+            logits = [(g.full_tensor() if hasattr(g, "full_tensor") else g).float().cpu()
+                      for g in got]
+            return logits, cache, secs
+
+        want, plain_cache, plain_s = run(lambda b: b, lambda c: c, lambda c: None)
+        plain_cache = [t.clone() for t in _cache_leaves(plain_cache)]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+        mesh = make_local_mesh(1, device="cuda")
+        shard_model(model, mesh, param_pspecs(model, cfg, mesh))
+        placed = {}
+
+        def placements(cache):
+            return [tuple(t.placements) for t in _cache_leaves(cache)]
+
+        def place_cache(cache):
+            cache = shard_cache(cache, mesh, cache_pspecs(cache, cfg, mesh))
+            placed["in"] = placements(cache)
+            spec = _cache_leaves(cache_pspecs(cache, cfg, mesh))
+            if placed["in"] != [tuple(to_placements(sp, mesh)) for sp in spec]:
+                raise AssertionError("(a) the prefill's cache is not placed by cache_pspecs")
+            return cache
+
+        def check(cache):
+            if placements(cache) != placed["in"]:
+                raise AssertionError("(a) a decode step changed a cache leaf's placements")
+
+        install_mesh(mesh)
+        try:
+            got, cache, sharded_s = run(lambda b: shard_batch(b, mesh, batch_pspecs(b, mesh)),
+                                        place_cache, check)
+        finally:
+            install_mesh(None)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(want, got)):
+            scale = float(a.abs().max())
+            err = float((a - b).abs().max())
+            if err > DECODE_REL * scale:
+                raise AssertionError(f"(a) step {i}: DTensor logits off by {err} (max {scale})")
+            worst = max(worst, err / scale)
+        leaves = _cache_leaves(cache)
+        same = all(torch.equal(a, b.to_local()) for a, b in zip(plain_cache, leaves))
+        if not (same and len(leaves) == len(plain_cache)):
+            raise AssertionError("(a) the DTensor cache differs from the plain cache")
+        n_leaves = len(leaves)
+        kinds = sorted({str(p) for pl in placed["in"] for p in pl})
+        del model, cache, plain_cache, leaves
+        torch.cuda.empty_cache()
+        later_plain = float(np.median(plain_s[2:])) * 1e3
+        later_sharded = float(np.median(sharded_s[2:])) * 1e3
+        stats.update(decode_logit_rel=worst, decode_prefill_s=[sharded_s[0], plain_s[0]],
+                     decode_first_step_ms=[sharded_s[1] * 1e3, plain_s[1] * 1e3],
+                     decode_step_ms=[later_sharded, later_plain], decode_cache_leaves=n_leaves)
+        log(f"[decode] (a) {SERVE_ARCH} full width in fp32 (TF32 off) on a one-rank NCCL mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: prefill of ({DECODE_BATCH}, "
+            f"{DECODE_PROMPT}) into a cache of {DECODE_CAP} and {DECODE_STEPS} decode steps as "
+            f"DTensors against the plain path: logits within {worst:.3e} of the largest |logit| "
+            f"(tolerance {DECODE_REL}), the {n_leaves} cache leaves torch.equal, every leaf placed "
+            f"as it came in after every step ({kinds}); prefill {sharded_s[0]:.3f} s DTensor / "
+            f"{plain_s[0]:.3f} s plain, the first step {sharded_s[1] * 1e3:.1f} / "
+            f"{plain_s[1] * 1e3:.1f} ms, a later step (median of {DECODE_STEPS - 1}) "
+            f"{later_sharded:.2f} / {later_plain:.2f} ms; on {card}")
+
+        # (b) the production dry-run cells
+        out, err = cells.communicate(timeout=DECODE_DRYRUN_TIMEOUT)
+        cells_s = time.perf_counter() - t_cells
+        if cells.returncode != 0:
+            raise AssertionError(f"(b) a dry-run cell failed: exit {cells.returncode}, "
+                                 f"{out[-1000:]} {err[-3000:]}")
+        arts = []
+        for arch, shape, mesh_kind in DECODE_CELLS:
+            art = json.loads((cells_dir / f"{arch}__{shape}__{mesh_kind}.json").read_text())
+            mem, hc, rf = art["memory"], art["hlo_cost"], art["roofline"]
+            if not (hc["flops_per_device"] > 0 and art["cache_all_gathers"] == 0):
+                raise AssertionError(f"(b) {arch} x {shape}: {hc['flops_per_device']} FLOPs, "
+                                     f"{art['cache_all_gathers']} all-gathers of a cache block")
+            arts.append({k: art[k] for k in ("arch", "shape", "mesh", "chips", "mode", "memory",
+                                              "roofline", "cache_all_gathers", "trace_s")}
+                        | {"collective_count": hc["collective_count"],
+                           "collective_bytes": hc["collective_bytes"],
+                           "flops_per_device": hc["flops_per_device"]})
+            log(f"[decode] (b) dry run {arch} x {shape} x {mesh_kind} ({art['chips']} fake ranks, "
+                f"mode {art['mode']}): per rank arguments {mem['argument_bytes']} + temporaries "
+                f"{mem['temp_bytes']} = {mem['peak_bytes']} bytes against 80e9 (fits: "
+                f"{mem['fits_hbm']}), outputs {mem['output_bytes']}, aliased "
+                f"{mem['alias_bytes']}; FLOPs {hc['flops_per_device']:.6e} a rank (useful "
+                f"{art['useful_flops_ratio']:.4f}), bytes {hc['hbm_bytes_per_device']:.6e}; "
+                f"collectives {hc['collective_count']} {hc['collective_bytes']}; all-gathers of a "
+                f"cache block {art['cache_all_gathers']}; roofline compute "
+                f"{rf['t_compute_s'] * 1e3:.4f} ms, memory {rf['t_memory_s'] * 1e3:.4f} ms, "
+                f"collective {rf['t_collective_s'] * 1e3:.4f} ms ({rf['dominant']}); the traced "
+                f"step {art['trace_s']} s")
+        stats.update(dryrun_cells=arts, dryrun_cells_s=cells_s)
+        log(f"[decode] (b) the {len(arts)} cells as one process took {cells_s:.1f} s beside "
+            f"phases 14 and 15 (a); the device type of their mesh cuda, nothing on the card")
+    finally:
+        if cells.poll() is None:
+            cells.kill()
+            cells.communicate()
+        install_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"[decode] phase 15 took {stats['seconds']:.1f} s")
+    return stats
+
+
 def _rules_at_full_width(card: str) -> dict:
     """Phase 14 (a): ``param_pspecs`` for all ten archs (heads padded to
     16) on both production mesh shapes, built on shapes only."""
@@ -3458,7 +3688,23 @@ def main() -> int:
 
     # -- 14: distribution: the rules, the sharded match and train step, the
     # cost model, the dry run
-    x_stats = distribution_phase(np, torch, card, inputs["wildcard_match"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    cells_dir = Path(tempfile.mkdtemp(prefix="decode-cells-", dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, cells_dir, True)
+    t_cells = time.perf_counter()
+    cells = _decode_cells_process(cells_dir)  # phase 15 (b), beside 14 and 15 (a)
+    try:
+        x_stats = distribution_phase(np, torch, card, inputs["wildcard_match"])
+    except BaseException:
+        cells.kill()
+        cells.communicate()
+        raise
+
+    # -- 15: the sharded decode path: a one-rank mesh against the plain path,
+    # the production decode and prefill cells of the dry run
+    d_stats = decode_phase(np, torch, card, cells, cells_dir, t_cells)
+    log(f"[decode] {json.dumps({k: v for k, v in d_stats.items() if k != 'dryrun_cells'})}; "
+        f"{card}")
     row = next(r for r in rows if r["name"] == "wildcard_match")
     row["launches_by_path"] = {"compress (phase 3)": row["launches"],
                                "wildcard_match_sharded (phase 14)":

@@ -8,6 +8,7 @@ from .sharding import (
     param_pspecs,
     place,
     shard_batch,
+    shard_cache,
     shard_model,
     shard_opt_state,
     to_placements,
@@ -15,4 +16,5 @@ from .sharding import (
 )
 
 __all__ = ["AbstractMesh", "batch_pspecs", "cache_pspecs", "param_pspecs", "place",
-           "shard_batch", "shard_model", "shard_opt_state", "to_placements", "zero1_opt_pspecs"]
+           "shard_batch", "shard_cache", "shard_model", "shard_opt_state", "to_placements",
+           "zero1_opt_pspecs"]

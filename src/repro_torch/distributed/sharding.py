@@ -17,7 +17,8 @@ rules run with no devices. Specs are keyed by the port's parameter names
 (``blocks.<i>.sub<j>.attn.wq``); a per-block leaf has no leading stack
 dim, so its spec is the reference's without the leading ``None``.
 ``to_placements`` turns a spec into the placements of a ``DTensor`` on a
-``DeviceMesh``; ``place`` and ``shard_model`` put tensors there.
+``DeviceMesh``; ``place``, ``shard_model``, ``shard_batch`` and
+``shard_cache`` put tensors there.
 
 Every leaf must match a rule: an unmatched one raises.
 """
@@ -379,3 +380,20 @@ def shard_batch(batch: dict, device_mesh, specs: dict) -> dict:
     import torch
 
     return {k: place(torch.as_tensor(v), specs[k], device_mesh) for k, v in batch.items()}
+
+
+def shard_cache(cache, device_mesh, specs):
+    """A decode cache (the tree of ``models.init_cache`` or of a prefill)
+    placed by ``specs`` (``cache_pspecs``): a plain leaf (the same whole
+    tensor on every rank, or a meta tensor) split with no traffic, a
+    ``DTensor`` leaf (a placed model's prefill) redistributed."""
+    def visit(node, spec):
+        if isinstance(node, dict):
+            return {k: visit(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, sp) for v, sp in zip(node, spec)]
+        if type(node).__name__ == "DTensor":
+            return node.redistribute(device_mesh, to_placements(spec, device_mesh))
+        return place(node, spec, device_mesh)
+
+    return visit(cache, specs)

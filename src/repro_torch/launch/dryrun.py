@@ -11,25 +11,33 @@ The JSON artifact has the reference's keys wherever the quantity is the
 same; memory per rank is
 
 - ``argument_bytes``: the local shards of the parameters, the moments and
-  the batch or cache;
+  the batch, or of the parameters, the decode cache and the tokens;
 - ``temp_bytes``: the peak of the storage the step allocated and still
   held, above the arguments;
 - ``output_bytes`` / ``alias_bytes``: the step's outputs, and those of
-  them that are arguments updated in place (the parameters),
+  them that are arguments updated in place (the parameters of a train
+  step, the states of a decode cache),
 
 held against the H100 80GB HBM3's 80 GB (``HBM_BYTES``). The reference's
-``xla_cost_analysis`` has no counterpart. The process group is set up
-process-wide, so a sweep runs one subprocess a cell (``--all``).
+``xla_cost_analysis`` has no counterpart. As the reference's
+``out_shardings`` do, a prefill step returns its cache placed by
+``cache_pspecs`` (the redistribution is part of the traced step), and a
+decode step takes a cache placed so and returns it placed so.
+``cache_all_gathers`` (prefill and decode cells) counts the all-gathers
+whose input is as large as a rank's block of a 4-D cache leaf (K/V,
+RWKV's state) or larger: split-K decode gathers none. The process group is set up process-wide, so a
+sweep runs one subprocess a cell (``--all``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape decode_32k \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape decode_32k --mesh both \
+      --device cpu
 
 ``--device`` is the mesh's device type ("cuda" by default, which raises
-where there is no card; the cell itself needs no device). Train and
-prefill cells run; a decode cell raises ``NotImplementedError`` (its
-in-place write into a sequence-sharded cache has no DTensor rule), and
-``--all`` reports those cells apart from its failures.
+where there is no card; the cell itself needs no device).
 """
 
 from __future__ import annotations
@@ -183,18 +191,17 @@ def _bytes(ts) -> int:
     return sum(_local(t).numel() * _local(t).element_size() for t in ts)
 
 
-def _sharded_serving(fn, *extra):
-    """``serving.prefill`` for DTensor inputs: under
-    ``no_grad`` in place of their ``inference_mode`` (DTensor cannot view
-    a tensor made outside inference mode inside it), the plain tensors
-    they make counted as replicated."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    def step(*args):
-        with torch.no_grad(), implicit_replication():
-            return fn.__wrapped__(*args, *extra)
-
-    return step
+def cache_all_gathers(cache, gathers) -> int:
+    """The all-gathers (``CostModel``'s ``all_gather_inputs``: [shape,
+    count] pairs) whose input is 4-D and at least as large as the
+    smallest local block of a 4-D leaf of ``cache`` (K/V, RWKV's state):
+    the gathers of a cache block, or of anything as large."""
+    blocks = [_local(t).numel() for t in _leaves(cache) if t.ndim == 4]
+    if not blocks:
+        return 0
+    least = min(blocks)
+    return sum(n for shape, n in gathers
+               if len(shape) == 4 and int(torch.Size(shape).numel()) >= least)
 
 
 def lower_cell(arch: str, shape: str, multi_pod: bool, microbatches: int | None = None,
@@ -208,25 +215,21 @@ def lower_cell(arch: str, shape: str, multi_pod: bool, microbatches: int | None 
     from ..distributed.act_shard import install_mesh
     from ..distributed.sharding import (
         batch_pspecs,
+        cache_pspecs,
         param_pspecs,
         shard_batch,
+        shard_cache,
         shard_model,
         shard_opt_state,
         zero1_opt_pspecs,
     )
     from ..kernels.ops import check_device
-    from ..models import Transformer, tp_pad
+    from ..models import Transformer, serving, tp_pad
     from ..optim.adamw import adamw_init
-    from ..models import serving
-    from ..train.steps import make_train_step
+    from ..train.steps import make_decode_step, make_train_step
     from .mesh import make_production_mesh
 
     dev = check_device(device)
-    if SHAPES[shape]["kind"] == "decode":
-        raise NotImplementedError(
-            "decode cells are not ported: the decode step writes each token's K/V in place "
-            "into a cache whose sequence dim is split over 'model' (index_copy_ along the "
-            "split dim), for which DTensor keeps no consistent placement (ROADMAP A.2)")
     if mesh is None:
         fake_group(512 if multi_pod else 256)
         mesh = make_production_mesh(multi_pod=multi_pod, device=dev)
@@ -269,9 +272,17 @@ def lower_cell(arch: str, shape: str, multi_pod: bool, microbatches: int | None 
                             batch_pspecs(specs["batch"], mesh, dp_axes=dp_axes))
         step = make_train_step(cfg, microbatches=mb)
         args = (model, opt, batch)
-    else:  # prefill
-        step = _sharded_serving(serving.prefill, info["seq"])
+    elif info["kind"] == "prefill":
+        def step(model, batch):  # the cache out as the reference's out_shardings place it
+            logits, cache = serving.prefill(model, batch, info["seq"])
+            return logits, shard_cache(cache, mesh, cache_pspecs(cache, cfg, mesh))
+
         args = (model, shard_batch(specs["batch"], mesh, batch_pspecs(specs["batch"], mesh)))
+    else:  # decode: one token against the placed cache
+        step = make_decode_step(cfg)
+        toks = {"t": specs["tokens"]}
+        args = (model, shard_cache(specs["cache"], mesh, cache_pspecs(specs["cache"], cfg, mesh)),
+                shard_batch(toks, mesh, batch_pspecs(toks, mesh))["t"])
     return mesh, cfg, step, args, mb, mode
 
 
@@ -300,8 +311,9 @@ def run_cell(arch: str, shape: str, mesh_kind: str, out_dir: str, microbatches=N
         install_mesh(None)
     t_trace = time.time() - t0
     costs = cm.result()
-    outs = _leaves(list(out[1:]) if SHAPES[shape]["kind"] == "train" else list(out))
-    if SHAPES[shape]["kind"] == "train":
+    kind = SHAPES[shape]["kind"]
+    outs = _leaves(list(out[1:]) if kind == "train" else list(out))
+    if kind == "train":
         outs += _leaves(dict(out[0].named_parameters()))
     out_bytes = _bytes(outs)
     alias = _bytes([t for t in outs if _local(t).untyped_storage()._cdata in arg_keys])
@@ -336,7 +348,10 @@ def run_cell(arch: str, shape: str, mesh_kind: str, out_dir: str, microbatches=N
             "collective_bytes_total": costs["collective_bytes_total"],
             "dot_count": costs["dot_count"],
             "op_count": costs["op_count"],
+            "all_gather_inputs": costs["all_gather_inputs"],
         },
+        "cache_all_gathers": (None if kind == "train" else cache_all_gathers(
+            args[1] if kind == "decode" else out[1], costs["all_gather_inputs"])),
         "roofline": terms,
         "model_flops_global": mf,
         "model_flops_per_device": mf / n_dev,
@@ -365,10 +380,10 @@ def main(argv=None):
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     cells = []
-    if args.all:
+    if args.all:  # every applicable cell, or those of --arch / --shape
         for a in ARCH_IDS:
             for s in SHAPES:
-                if shape_applicable(a, s):
+                if shape_applicable(a, s) and args.arch in (None, a) and args.shape in (None, s):
                     cells.append((a, s))
     else:
         if not (args.arch and args.shape):
@@ -378,11 +393,8 @@ def main(argv=None):
         run_cell(cells[0][0], cells[0][1], meshes[0], args.out, args.microbatches, args.device)
         return
 
-    failures, left_out = [], []
+    failures = []
     for a, s in cells:  # one process a cell: the fake group is process-wide
-        if SHAPES[s]["kind"] == "decode":
-            left_out.append((a, s))
-            continue
         for m in meshes:
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s,
                    "--mesh", m, "--out", args.out, "--device", args.device]
@@ -393,8 +405,6 @@ def main(argv=None):
             if p.returncode:
                 failures.append((a, s, m, p.stderr[-2000:]))
                 print(f"FAILED {a} {s} {m}: {p.stderr[-400:]}", flush=True)
-    if left_out:
-        print(f"\n{len(left_out)} decode cells not ported (ROADMAP A.2): {left_out}")
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:

@@ -26,6 +26,8 @@ other.
   (``torch.distributed`` calls), with their group's size:
     all-reduce 2(g-1)/g * size, all-gather/all-to-all (g-1)/g * size,
     reduce-scatter (g-1) * size (its result; operand = size * g).
+- All-gather inputs: the shape of every all-gather's input, with its
+  count (what the dry run reads to tell a gather of a cache block).
 - Live bytes: the storage that the traced ops allocated and that is still
   referenced, peak and at the end (what the dry run reports as temporary
   memory).
@@ -150,6 +152,7 @@ class CostModel(TorchDispatchMode):
         self.convert_bytes = 0.0
         self.collective_bytes = defaultdict(float)
         self.collective_count = defaultdict(int)
+        self.gather_inputs = defaultdict(int)  # input shape -> all-gathers
         self.dot_count = 0
         self.op_count = 0
         self.live_bytes = 0
@@ -210,6 +213,9 @@ class CostModel(TorchDispatchMode):
             size = _nbytes(outs[0]) if ns == "_c10d_functional" else _nbytes(ins[0])
             self.collective_bytes[kind] += _wire(kind, size, g)
             self.collective_count[kind] += 1
+            if kind == "all-gather":  # c10d's first tensor is the output
+                src = ins[0] if ns == "_c10d_functional" else ins[-1]
+                self.gather_inputs[tuple(src.shape)] += 1
         if func.is_view or name in _FREE or name.startswith("sym_"):
             return
         res = sum(_nbytes(t) for t in outs)
@@ -236,6 +242,7 @@ class CostModel(TorchDispatchMode):
             "collective_bytes_total": sum(coll.values()),
             "dot_count": self.dot_count,
             "op_count": self.op_count,
+            "all_gather_inputs": [[list(k), n] for k, n in sorted(self.gather_inputs.items())],
             "peak_live_bytes": self.peak_live_bytes,
             "live_bytes": self.live_bytes,
         }

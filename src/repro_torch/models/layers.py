@@ -4,6 +4,12 @@ sequences, one-token decode against a KV cache), dense FFN.
 Plain functions on tensors, the arithmetic of ``repro.models.layers``:
 compute dtype follows the inputs (bf16 in a bf16 model); softmax and
 norm statistics accumulate in fp32. The products are ``torch.matmul``.
+
+On ``DTensor`` inputs (a model placed on a mesh) attention runs on each
+rank's (batch, head) blocks (``act_shard.on_blocks``), and one-token
+decode against a cache whose sequence dim is split runs split-K: each
+rank scores its own block of the cache, and only the softmax's
+statistics and the (B, H, hd) output are reduced across the split.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..distributed.act_shard import shard_act
+from ..distributed.act_shard import block_offset, on_blocks, placed
 
 NEG_INF = -1e30
 
@@ -65,12 +71,21 @@ def attention(q, k, v, *, causal: bool, k_chunk: int = 1024, kv_len=None):
     kv_len: optional (B,) valid KV prefix length (decode masking).
 
     A loop over KV chunks carrying the running (acc, max, denom) in fp32,
-    so the (B, H, Sq, k_chunk) score tile is the largest transient.
+    so the (B, H, Sq, k_chunk) score tile is the largest transient. On
+    ``DTensor`` s the loop runs on each rank's (batch, head) blocks.
     """
-    b, sq, h, hd = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    h, kv = q.shape[2], k.shape[2]
     k = _repeat_kv(k, h // kv)
     v = _repeat_kv(v, h // kv)
+    heads = ("batch", None, "model", None)
+    return on_blocks(functools.partial(_attention, causal=causal, k_chunk=k_chunk),
+                     (q, k, v, kv_len), (heads, heads, heads, ("batch",)), heads)
+
+
+def _attention(q, k, v, kv_len, *, causal: bool, k_chunk: int):
+    """``attention`` on plain tensors, K/V heads already repeated to H."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
     scale = hd ** -0.5
 
     k_chunk = min(k_chunk, sk)
@@ -113,21 +128,73 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     GQA-native, as the reference: q is folded to (B, KV, H/KV, hd) and
     contracted straight against the cache, with no KV head repetition;
     scores and output accumulate in fp32, and the probabilities are
-    rounded to the cache's dtype before the second product.
+    rounded to the cache's dtype before the second product. A ``DTensor``
+    cache takes ``_split_k_decode_attention``.
     """
+    if type(k_cache).__name__ == "DTensor":
+        return _split_k_decode_attention(q, k_cache, v_cache, kv_len)
+    return _decode_attention(q, k_cache, v_cache, kv_len)
+
+
+def _decode_scores(q, k_cache, kv_len, start: int = 0):
+    """(B, KV, g, S) fp32 scores of q against the cache's slots ``start``,
+    ``start + 1``, ..., those at or past ``kv_len`` masked."""
     b, _, h, hd = q.shape
     s_len, kv = k_cache.shape[1], k_cache.shape[2]
-    g = h // kv
-    q2 = q.reshape(b, kv, g, hd).float()
+    q2 = q.reshape(b, kv, h // kv, hd).float()
     kc = k_cache.float().permute(0, 2, 3, 1)                     # (B, KV, hd, S)
     s = (q2 @ kc) * hd ** -0.5                                   # (B, KV, g, S)
-    s = shard_act(s, ("batch", None, None, "model"))  # keep S sharded
-    mask = torch.arange(s_len, device=q.device)[None, :] < kv_len[:, None]
-    s = torch.where(mask[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    vc = v_cache.float().transpose(1, 2)                         # (B, KV, S, hd)
-    out = p.to(v_cache.dtype).float() @ vc                       # (B, KV, g, hd)
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    mask = start + torch.arange(s_len, device=q.device)[None, :] < kv_len[:, None]
+    return torch.where(mask[:, None, None, :], s, NEG_INF)
+
+
+def _decode_out(p, v_cache):
+    """(B, KV, g, hd) fp32: the probabilities, rounded to the cache's
+    dtype, times the cache."""
+    return p.to(v_cache.dtype).float() @ v_cache.float().transpose(1, 2)
+
+
+def _decode_attention(q, k_cache, v_cache, kv_len):
+    """``decode_attention`` on plain tensors."""
+    p = torch.softmax(_decode_scores(q, k_cache, kv_len), dim=-1)
+    return _decode_out(p, v_cache).reshape(q.shape).to(q.dtype)
+
+
+def _split_k_decode_attention(q, k_cache, v_cache, kv_len):
+    """``decode_attention`` on ``DTensor`` caches (placed by
+    ``cache_pspecs``: batch over the data axes, the sequence over "model")
+    without gathering them. q and ``kv_len`` are placed as the cache's
+    rows (q's heads whole where the cache's sequence is split); each rank
+    scores its own block of slots at its offset, then the softmax's max
+    and sum and the (B, KV, g, hd) output are all-reduced across the
+    mesh dims that split the sequence (split-K). Where none does, the
+    plain arithmetic runs on the local blocks."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, cache_pl = k_cache.device_mesh, tuple(k_cache.placements)
+    if any(isinstance(p, Partial) for p in cache_pl):
+        raise ValueError(f"a cache placed {cache_pl} holds partial sums")
+    if v_cache.placements != k_cache.placements:
+        raise ValueError(f"k cache placed {cache_pl}, v cache {v_cache.placements}")
+    rows = [Replicate() if p == Shard(1) else p for p in cache_pl]
+    lens = [p if p == Shard(0) else Replicate() for p in cache_pl]
+
+    ql, ll = placed(q, mesh, rows).to_local(), placed(kv_len, mesh, lens).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    start, split = block_offset(k_cache, 1)
+    if not split:
+        out = _decode_attention(ql, kl, vl, ll)
+    else:
+        def reduce(t, op):  # across the sequence's shards
+            part = [Partial(op) if i in split else lens[i] for i in range(mesh.ndim)]
+            return DTensor.from_local(t, mesh, part, run_check=False).redistribute(
+                mesh, lens).to_local()
+
+        s = _decode_scores(ql, kl, ll, start)       # the scores stay split over S
+        e = torch.exp(s - reduce(s.amax(dim=-1), "max")[..., None])
+        p = e / reduce(e.sum(dim=-1), "sum")[..., None]
+        out = reduce(_decode_out(p, vl), "sum").reshape(ql.shape).to(ql.dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 def ffn(x, params, act: str):

@@ -16,11 +16,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.act_shard import shard_act
+from ..distributed.act_shard import on_blocks, shard_act
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv via shifted adds. u: (B, L, di), w: (dc, di)."""
+    """Depthwise causal conv via shifted adds. u: (B, L, di), w: (dc, di).
+    Each channel alone: on ``DTensor`` s it runs on each rank's (batch,
+    channel) blocks (DTensor 2.11 cannot plan the pad of a split tensor)."""
+    return on_blocks(_causal_conv_local, (u, w, b),
+                     (("batch", None, "model"), (None, "model"), ("model",)),
+                     ("batch", None, "model"))
+
+
+def _causal_conv_local(u, w, b):
     dc = w.shape[0]
     out = u * w[-1]
     for j in range(1, dc):
@@ -33,7 +41,9 @@ def _ssm_inputs(u: torch.Tensor, p, cfg):
     """Common projections. u: (B, L, di) post-conv post-silu ->
     dt (B, L, di) fp32, B (B, L, ds), C (B, L, ds)."""
     ds, dr = cfg.ssm_state, cfg.dt_rank
-    dbc = u @ p["x_proj"]
+    # summed over "model" (d_inner's split) before it is cut in three: DTensor
+    # 2.11 cannot carry the partial sum through the split and dt_proj
+    dbc = shard_act(u @ p["x_proj"], ("batch",) + (None,) * (u.ndim - 1))
     dt_r, bmat, cmat = torch.split(dbc, [dr, ds, ds], dim=-1)
     dt = F.softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"].float())
     return dt, bmat, cmat
@@ -92,6 +102,8 @@ def mamba_decode(x: torch.Tensor, p, cfg, state):
     """One token. x: (B, 1, d); state = (conv_state (B, dc-1, di), h (B, di, ds))."""
     conv_st, h = state
     u, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)                 # (B, 1, di)
+    u = shard_act(u, ("batch", None, "model"))  # as the state: channels over model
+    z = shard_act(z, ("batch", None, "model"))
     window = torch.cat([conv_st, u], dim=1)                          # (B, dc, di)
     u_conv = (window * p["conv_w"]).sum(dim=1, keepdim=True) + p["conv_b"]
     u_act = F.silu(u_conv)

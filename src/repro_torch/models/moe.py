@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.act_shard import shard_act
+from ..distributed.act_shard import act_spec, shard_act
 
 
 def _router(x: torch.Tensor, wg: torch.Tensor, top_k: int):
@@ -85,12 +85,18 @@ def moe_ffn(x: torch.Tensor, params, *, top_k: int, capacity_factor: float, act:
                  * slot[:, :, kk, None, :])
             disp = disp + m
             comb = comb + m * gates_g[:, :, kk, None, None]
-        xin = torch.einsum("gnec,gnd->gecd", disp, xg)                # (G, E, C, d)
+        # the two contractions as products over one folded (E, C) dim, E
+        # first: torch.einsum folds (C, E), which DTensor 2.11 refuses where
+        # the experts are split over "model"
+        xin = (disp.reshape(ng, g, e * cap).transpose(1, 2) @ xg).reshape(ng, e, cap, d)
         # expert dim over "model", capacity slots over "batch" (data)
         xin = shard_act(xin.transpose(0, 1).reshape(e, ng * cap, d), ("model", "batch", None))
         hout = shard_act(_expert_ffn(xin, params, act), ("model", "batch", None))
+        # the slots stay split only by whole groups (the combine's rows)
+        groups = act_spec((ng,), ("batch",))
+        hout = shard_act(hout, ("model", "batch" if groups and groups[0] else None, None))
         hout = hout.reshape(e, ng, cap, d).transpose(0, 1)            # (G, E, C, d)
-        out = torch.einsum("gnec,gecd->gnd", comb, hout).reshape(n, d)
+        out = (comb.reshape(ng, g, e * cap) @ hout.reshape(ng, e * cap, d)).reshape(n, d)
     else:  # sort-based gather/scatter dispatch
         cap = max(1, int(n * top_k * capacity_factor / e))
         flat_e = experts.reshape(-1)                                  # (N*k,)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.act_shard import shard_act
+from ..distributed.act_shard import on_blocks, shard_act
 
 CLAMP = -30.0
 
@@ -57,9 +57,21 @@ def _group_norm(o: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torc
     return o * torch.rsqrt(var + eps) * scale
 
 
+_HEADS = ("batch", None, "model", None)   # (B, L, H, hd)
+_STATE_DIMS = ("batch", "model", None, None)   # (B, H, hd, hd)
+
+
 def _chunk(s, rr, kk, vv, ww, u):
     """One chunk: state (B, H, hd, hd) and (B, cl, H, hd) fp32 inputs ->
-    (new state, output (B, cl, H, hd))."""
+    (new state, output (B, cl, H, hd)), on each rank's (batch, head)
+    blocks; the results are placed as the reference constrains them."""
+    return on_blocks(_chunk_local, (s, rr, kk, vv, ww, u),
+                     (_STATE_DIMS, _HEADS, _HEADS, _HEADS, _HEADS, ("model", None)),
+                     (_STATE_DIMS, _HEADS))
+
+
+def _chunk_local(s, rr, kk, vv, ww, u):
+    """``_chunk`` on plain tensors."""
     cl = rr.shape[1]
     lcum = torch.clamp(torch.cumsum(ww, dim=1), min=CLAMP)         # L_t (<= 0)
     lprev = torch.cat([torch.zeros_like(lcum[:, :1]), lcum[:, :-1]], dim=1)
@@ -77,8 +89,6 @@ def _chunk(s, rr, kk, vv, ww, u):
     lend = lcum[:, -1]                                              # (B, H, hd)
     s_new = torch.exp(lend)[..., None] * s + torch.einsum(
         "bshc,bshd->bhcd", k_tld * torch.exp(lend)[:, None], vv)
-    s_new = shard_act(s_new, ("batch", "model", None, None))
-    o = shard_act(o, ("batch", None, "model", None))
     return s_new, o
 
 
@@ -111,13 +121,21 @@ def rwkv_decode(x: torch.Tensor, p, cfg, state):
     r, k, v, g, logw = _projections(x, x_prev[:, None], p, cfg)
     rr, kk, vv = (t[:, 0].float() for t in (r, k, v))               # (B, H, hd)
     w = torch.exp(torch.clamp(logw[:, 0].float(), min=CLAMP))
-    u = p["u_bonus"]
-    kv = torch.einsum("bhc,bhd->bhcd", kk, vv)
-    o = torch.einsum("bhc,bhcd->bhd", rr, s + u[None, :, :, None] * kv)
-    s_new = w[..., None] * s + kv
+    heads = ("batch", "model", None)
+    o, s_new = on_blocks(_step, (s, rr, kk, vv, w, p["u_bonus"]),
+                         (_STATE_DIMS, heads, heads, heads, heads, ("model", None)),
+                         (heads, _STATE_DIMS))
     o = _group_norm(o[:, None], p["ln_scale"]).reshape(b, 1, d).to(x.dtype)
     y = (o * g) @ p["w_o"]
     return y, (x[:, 0], s_new)
+
+
+def _step(s, rr, kk, vv, w, u):
+    """One step of the recurrence on plain tensors: state (B, H, hd, hd),
+    (B, H, hd) fp32 inputs -> (output (B, H, hd), new state)."""
+    kv = torch.einsum("bhc,bhd->bhcd", kk, vv)
+    o = torch.einsum("bhc,bhcd->bhd", rr, s + u[None, :, :, None] * kv)
+    return o, w[..., None] * s + kv
 
 
 def init_state(batch: int, cfg, dtype: torch.dtype, device) -> tuple:

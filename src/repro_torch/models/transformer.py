@@ -27,7 +27,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..distributed.act_shard import shard_act
+from ..distributed.act_shard import act_spec, shard_act
 from ..kernels.ops import check_device
 from . import mamba, rwkv6
 from .config import ModelConfig
@@ -256,6 +256,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 # ---------------------------------------------------------------- sublayers
 
+def _whole_heads(t, n_heads: int):
+    """``t`` (B, S, heads * hd) with its last dim split over "model" only by
+    whole heads, so that the reshape to (B, S, heads, hd) can keep the
+    split (DTensor may split a product's columns where the heads do not
+    divide); a no-op on plain tensors."""
+    spec = act_spec((n_heads,), ("model",))
+    return shard_act(t, ("batch", None, "model" if spec and spec[0] else None))
+
+
 def _attn_qkv(x, p, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -264,6 +273,7 @@ def _attn_qkv(x, p, cfg: ModelConfig, positions):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = _whole_heads(q, h), _whole_heads(k, kv), _whole_heads(v, kv)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
@@ -357,7 +367,9 @@ def embed_inputs(model: Transformer, batch: dict):
     """tokens (+ the VLM's ``vision`` prefix) -> (x (B, S, d), positions
     (B, S)); the audio family adds sine positions."""
     cfg = model.cfg
-    x = embed_tokens(model, batch["tokens"])
+    # the vocab-parallel rows summed before anything joins them (DTensor
+    # cannot add or concatenate a replicated tensor to a partial sum on "meta")
+    x = shard_act(embed_tokens(model, batch["tokens"]), ("batch", None, None))
     if cfg.n_patches and "vision" in batch:
         vision = torch.as_tensor(batch["vision"], device=model.device)
         x = torch.cat([vision.to(x.dtype), x], dim=1)

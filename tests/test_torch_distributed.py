@@ -177,6 +177,101 @@ elif case == "match":
         res.update(full=full, n_comm=np.array(n_comm), launches=np.array(launches),
                    own=np.array(bool(np.array_equal(local, own))), uneven=np.array(uneven),
                    placements=np.array(str(got.placements)), shape=np.array(got.shape))
+elif case.startswith("decode"):
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import cache_pspecs, shard_cache
+    from repro_torch.models import decode_step, init_params, prefill
+    data = np.load(store + ".batch.npz")
+    toks, m_len, n_pre = torch.from_numpy(data["tokens"]), int(data["max_len"]), int(data["prompt"])
+    cfg = get_config(case.split(":")[1]).reduced(dtype="float32")
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for n, t in tree.items() for k, v in leaves(t, prefix + n + "/").items()}
+        if isinstance(tree, list):
+            return {k: v for i, t in enumerate(tree) for k, v in leaves(t, f"{prefix}{i}/").items()}
+        return {prefix[:-1]: tree}
+
+    if rank == 0:  # one process
+        one = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        lg, cache = prefill(one, {"tokens": toks[:, :n_pre]}, m_len)
+        res["one/0"] = lg.numpy()
+        for t in range(n_pre, toks.shape[1]):
+            lg, cache = decode_step(one, cache, toks[:, t:t + 1])
+            res[f"one/{t - n_pre + 1}"] = lg.numpy()
+        for k, v in leaves(cache).items():
+            res["onecache/" + k] = v.numpy()
+
+    class Views(TorchDispatchMode):
+        # the DTensor-level views whose flatten folds a split dim into the
+        # dim before it (DTensor 2.11 refuses them)
+        def __init__(self):
+            super().__init__()
+            self.bad = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(t is DTensor for t in types):
+                name = func._schema.name.split("::")[-1]
+                if name in ("view", "_unsafe_view") and isinstance(args[0], DTensor):
+                    x, size = args[0], list(args[1])
+                    if -1 in size:
+                        size[size.index(-1)] = x.numel() // -int(np.prod(size))
+                    split = {q.dim for q in x.placements if q.is_shard()}
+                    ins = [d for d in range(x.ndim) if x.shape[d] != 1]  # size 1: squeezes
+                    outs = [n for n in size if n != 1]
+                    i = j = 0
+                    pi = pj = 1
+                    group = []
+                    while i < len(ins) or j < len(outs):  # the input dims each group folds
+                        if pi <= pj and i < len(ins):
+                            group.append(ins[i])
+                            pi *= x.shape[ins[i]]
+                            i += 1
+                        elif j < len(outs):
+                            pj *= outs[j]
+                            j += 1
+                        else:
+                            break
+                        if pi == pj:
+                            if any(d in split for d in group[1:]):
+                                self.bad.append(f"{name} {tuple(x.shape)} {x.placements} -> {size}")
+                            group, pi, pj = [], 1, 1
+                return NotImplemented
+            return func(*args, **kwargs)
+
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, 2), mesh_dim_names=("data", "model"))
+    shard_model(model, mesh, param_pspecs(model, cfg, mesh))
+    install_mesh(mesh)
+    views = Views()
+    with views:
+        pre = {"tokens": toks[:, :n_pre]}
+        lg, cache = prefill(model, shard_batch(pre, mesh, batch_pspecs(pre, mesh)), m_len)
+        cache = shard_cache(cache, mesh, cache_pspecs(cache, cfg, mesh))
+        placed = {k: list(v.placements) for k, v in leaves(cache).items()}
+        specs = leaves(cache_pspecs(cache, cfg, mesh))
+        kept = placed == {k: to_placements(sp, mesh) for k, sp in specs.items()}
+        got = [lg.full_tensor()]
+        for t in range(n_pre, toks.shape[1]):
+            tok = {"t": toks[:, t:t + 1]}
+            tok = shard_batch(tok, mesh, batch_pspecs(tok, mesh))["t"]
+            lg, cache = decode_step(model, cache, tok)
+            kept = kept and {k: list(v.placements) for k, v in leaves(cache).items()} == placed
+            got.append(lg.full_tensor())
+    install_mesh(None)
+    full = {k: v.full_tensor() for k, v in leaves(cache).items()}
+    if rank == 0:
+        for i, g in enumerate(got):
+            res[f"two/{i}"] = g.numpy()
+        for k, v in full.items():
+            res["twocache/" + k] = v.numpy()
+        res["kept"] = np.array(kept)
+        res["split"] = np.array(json.dumps({k: [f"S({q.dim})" if q.is_shard() else "R" for q in v]
+                                            for k, v in placed.items()}))
+        res["bad_views"] = np.array(json.dumps(views.bad))
 if rank == 0:
     np.savez(out, **res)
 dist.destroy_process_group()
@@ -235,6 +330,42 @@ def test_sharded_step_equals_one_process(mode):
     else:
         assert int(got["sharded_params"]) == 0  # params replicated
         assert sum("S(" in "".join(p) for p in placed.values()) >= len(placed) - 1  # ZeRO-1
+
+
+DECODE_REL = 1e-5  # fp32: the shards' sums run in another order
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "jamba-v0.1-52b", "rwkv6-7b"])
+def test_sharded_decode_equals_one_process(arch):
+    """The reduced config in fp32 on the (2, 2) mesh in 2d (parameters by
+    ``param_pspecs``, the prefill's cache placed by ``cache_pspecs``: K/V
+    split over "model" along the sequence) against one process: a prompt
+    of 6 into a cache of 16, then 12 decode steps, whose writes cross from
+    the first sequence shard (slots 0-7) into the second and end clamped
+    at slot 15. Every step's logits within ``DECODE_REL`` of the largest
+    |logit|, the gathered cache within it of each leaf's largest |value|,
+    every cache leaf placed as it came in after every step, and no view
+    on a DTensor folds a split dim into the dim before it (the pattern
+    DTensor 2.11 refuses: ROADMAP C.7)."""
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, 512, (4, 18)).astype(np.int32)
+    got = _ranks(4, f"decode:{arch}", {"tokens": toks, "max_len": np.array(16),
+                                      "prompt": np.array(6)})
+    assert bool(got["kept"])
+    split = json.loads(str(got["split"]))
+    if arch != "rwkv6-7b":  # the K/V cache's sequence over "model"
+        assert any(v == ["S(0)", "S(1)"] and k.endswith("/k")
+                   for k, v in split.items()), split
+    assert json.loads(str(got["bad_views"])) == []
+    for i in range(13):
+        a, b = got[f"one/{i}"], got[f"two/{i}"]
+        assert float(np.abs(a - b).max()) <= DECODE_REL * float(np.abs(a).max()), i
+    names = [k[9:] for k in got if k.startswith("onecache/")]
+    assert names and {k[9:] for k in got if k.startswith("twocache/")} == set(names)
+    for k in names:
+        a, b = got["onecache/" + k], got["twocache/" + k]
+        assert a.shape == b.shape, k
+        assert float(np.abs(a - b).max()) <= DECODE_REL * max(float(np.abs(a).max()), 1e-30), k
 
 
 def test_checkpoint_restores_onto_another_mesh():
