@@ -108,7 +108,8 @@ Phases, each of which raises on failure:
 11. serving ``qwen3-1.7b`` at full width: the KV cache against
    ``forward`` in fp32 (TF32 off), a 2-layer full-width twin on the card
    against the CPU, a timed bf16 serve of 8 requests (prefill and decode
-   ms, tokens/s, peak memory, the decode bound), and ``python -m
+   ms, tokens/s, peak memory, the decode bound; the attention kernel
+   launched once a layer a prefill, never in the decode), and ``python -m
    repro_torch.launch.serve --device cuda`` as a process;
 12. serving the LM zoo's other families at full width: rwkv6-7b (32
    layers), jamba-v0.1-52b (8 of 32: one block of mamba, attention, MoE
@@ -124,8 +125,10 @@ Phases, each of which raises on failure:
    launcher as a process sent SIGTERM after its first step, whose
    preemption checkpoint is resumed to the same step: the two final
    checkpoints equal in the data cursor and the step, the parameters
-   within AdamW's reach; the preemption checkpoint in the reference's
-   layout; one train step of a 2-layer fp32 twin on the card against the
+   within AdamW's reach (two profiled steps launch the attention
+   kernel's forward twice a layer, remat, and its backward once); the
+   preemption checkpoint in the reference's layout; one train step of a
+   2-layer fp32 twin on the card against the
    CPU; ms a step, tokens/s, peak memory, the checkpoint's bytes and
    seconds, the FLOP bound;
 14. the distribution layer: (a) the sharding rules for all ten archs at
@@ -149,8 +152,14 @@ Phases, each of which raises on failure:
    as one process started beside phase 14: memory per rank against 80 GB,
    the roofline terms, the collectives, and no all-gather of a cache
    block. The decode path reaches no CUDA kernel of the port.
+16. the fused attention kernel (``kernels.attention``, CUDA C++) at the
+   benchmark cells' shapes, causal bf16: its output and gradients
+   against the plain version's, its forward and its forward plus
+   backward beside their FLOP bounds, the plain version and
+   ``F.scaled_dot_product_attention`` as a yardstick; row 7 carries the
+   launches and device ms that phases 11 and 13 counted on the main path.
    Then print the ``kernels`` line (row 1a's launches are phase 3's and
-   phase 14's) and the result line.
+   phase 14's; row 7 is phase 16's) and the result line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only.
 It exits non-zero, printing no result, when there is no CUDA device or
@@ -1794,6 +1803,7 @@ def serving_phase(np, torch, profile, activity, card: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as fa
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.models.weights import from_reference, to_reference
@@ -1869,14 +1879,20 @@ def serving_phase(np, torch, profile, activity, card: str) -> dict:
     serve_requests(model, 4, 4, 512, 4, np.random.default_rng(1), log=lambda m: None)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
     out = serve_requests(model, 8, 4, 512, 32, np.random.default_rng(SERVE_SEED),
                          log=lambda m: log(f"[serve] (c) {m}"))
     peak = torch.cuda.max_memory_allocated()
+    attn_launches = (fa.forward_launches(), fa.backward_launches())
     toks = torch.cat(out["tokens"])
     if not (toks.shape == (8, 32) and int(toks.min()) >= 0 and
             int(toks.max()) < cfg.padded_vocab):
         raise AssertionError(f"(c) served tokens out of range: {tuple(toks.shape)}")
     n_batches = len(out["tokens"])
+    # a prefill runs the attention kernel once a layer, the decode never
+    if attn_launches != (n_batches * cfg.n_layers, 0):
+        raise AssertionError(f"(c) {n_batches} prefills of {cfg.n_layers} layers launched the "
+                             f"attention kernel (forward, backward) {attn_launches} times")
     # the bytes a decode step must move: every weight but the embedding
     # table, of which it gathers B rows (the table is read whole as the
     # unembedding when tied); each layer's K/V: kv_len - 1 valid slots read
@@ -1936,7 +1952,23 @@ def serving_phase(np, torch, profile, activity, card: str) -> dict:
 
     # the card's share of a decode step: 8 steps under the profiler
     prompt = torch.from_numpy(rng.integers(3, cfg.vocab_size, (4, 512)).astype(np.int32)).to(dev)
-    logits, cache = prefill(model, {"tokens": prompt}, 512 + 9)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    with profile(activities=[activity.CUDA]) as prof:  # the prefill's attention on the card
+        logits, cache = prefill(model, {"tokens": prompt}, 512 + 9)
+        torch.cuda.synchronize()
+    attn = {name: cu for name, cu in device_us(prof).items() if "attn_fwd" in name}
+    seen = sum(c for c, _ in attn.values())
+    if fa.forward_launches() != cfg.n_layers or seen != cfg.n_layers:
+        raise AssertionError(f"a prefill of {cfg.n_layers} layers: {fa.forward_launches()} "
+                             f"attention launches counted, {seen} seen by the profiler")
+    stats["attention"] = {"launches": attn_launches[0], "prefills": n_batches,
+                          "profiled_prefill_launches": seen,
+                          "profiled_prefill_device_ms": sum(us for _, us in attn.values()) / 1e3}
+    log(f"[serve] (c) the attention kernel: {attn_launches[0]} forward launches in the timed "
+        f"serve's {n_batches} prefills, {attn_launches[1]} backward; one prefill of (4, 512) "
+        f"under torch.profiler: {seen} launches, "
+        f"{stats['attention']['profiled_prefill_device_ms']:.4f} device ms; on {card}")
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[activity.CUDA]) as prof:
@@ -2031,6 +2063,7 @@ def training_phase(np, torch, profile, activity, card: str) -> dict:
     from repro_torch.checkpoint.ckpt import load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenBatcher
+    from repro_torch.kernels import attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import Transformer, init_params, loss_fn
@@ -2119,6 +2152,7 @@ def training_phase(np, torch, profile, activity, card: str) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         del grads, clipped
+        fa.reset_launches()
         with profile(activities=[activity.CUDA]) as prof:
             t3 = time.perf_counter()
             for _ in range(2):
@@ -2126,6 +2160,23 @@ def training_phase(np, torch, profile, activity, card: str) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t3) * 1e3 / 2
         busy = device_us(prof)
+        # a step runs each layer's attention forward twice (the remat
+        # recomputes it) and its backward once
+        attn_launches = (fa.forward_launches(), fa.backward_launches())
+        want = (2 * (2 if cfg.remat else 1) * cfg.n_layers, 2 * cfg.n_layers)
+        attn = {name: cu for name, cu in busy.items() if "attn_" in name}
+        seen = sum(c for c, _ in attn.values())
+        if attn_launches != want or seen != want[0] + 3 * want[1]:
+            raise AssertionError(f"two steps launched the attention kernel (forward, backward) "
+                                 f"{attn_launches} times, not {want}; the profiler saw {seen} "
+                                 f"of its kernels")
+        stats["attention"] = {"launches": attn_launches, "profiled_steps": 2,
+                              "profiled_kernels": seen,
+                              "device_ms_a_step": sum(us for _, us in attn.values()) / 2e3}
+        log(f"[train] (c) the attention kernel over two profiled steps: {attn_launches[0]} "
+            f"forward launches, {attn_launches[1]} backward passes ({seen} kernels seen by the "
+            f"profiler), {stats['attention']['device_ms_a_step']:.4f} device ms a step; on "
+            f"{card}")
         busy_ms = sum(us for _, us in busy.values()) / 1e3 / 2
         n_ops = sum(c for c, _ in busy.values()) // 2
         top = sorted(busy.items(), key=lambda kv: -kv[1][1])[:5]
@@ -2963,6 +3014,7 @@ def families_phase(np, torch, card: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as fa
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.models import moe as moe_module
@@ -3170,6 +3222,126 @@ def families_phase(np, torch, card: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[family] phase 12 took {out['seconds']:.1f} s")
     return out
+
+
+# phase 16: the fused attention kernel at the benchmark cells' shapes,
+# causal, bf16: (batch, sequence, heads, KV heads, head dim)
+ATTN_SHAPES = {"serve.qwen3-1.7b.triage prefill": (32, 2048, 16, 8, 128),
+               "train.qwen1.5-0.5b.spark step": (8, 2048, 16, 16, 64)}
+# the kernel's bf16 o, dq, dk and dv against the plain version's, norm-wise:
+# ||got - want|| / ||want||, a few 1e-3 from the roundings of P, dS and
+# the outputs; a kernel that left out one block of keys a row errs by
+# several 1e-2
+ATTN_REL = 1e-2
+
+
+def attention_phase(torch, card: str, main_path: dict) -> dict:
+    """Phase 16: ``kernels.attention.flash_attention`` -> row 7 of the
+    kernel table. At each shape of ``ATTN_SHAPES`` (inputs from seed 0
+    on the card): o, dq, dk and dv against the plain version
+    ``models.layers._attention`` (autograd through its loop), each within
+    ``ATTN_REL`` norm-wise; the forward as serving runs it (no grad; its
+    device time from a CUDA graph of launches) and the forward plus
+    backward as training runs it (autograd, CUDA events), each beside its
+    bound (the causal FLOPs over 989 TFLOP/s; the backward counted at
+    twice the forward, as ``bench/counts.py`` counts it, without
+    recompute), the plain version and, as ``library_ms``,
+    ``F.scaled_dot_product_attention`` with K/V heads repeated beforehand
+    (a yardstick only: the port never calls it); one forward launch a
+    forward, one backward pass a backward. ``main_path``: the launches and
+    device ms that phases 11 and 13 counted on the serve's prefill and the
+    training step."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import layers
+
+    def plain(q, k, v):
+        rep = q.shape[2] // k.shape[2]
+        return layers._attention(q, layers._repeat_kv(k, rep), layers._repeat_kv(v, rep), None,
+                                 causal=True, k_chunk=1024)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def train(fn, args, do):  # a forward with the graph, then its backward
+        leaves = [a.detach().requires_grad_() for a in args]
+        fn(*leaves).backward(do)
+        return leaves
+
+    def outputs(fn, args, do):  # o, dq, dk, dv
+        leaves = [a.detach().requires_grad_() for a in args]
+        o = fn(*leaves)
+        o.backward(do)
+        return [o.detach()] + [t.grad for t in leaves]
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    row = {"name": "attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/attention.cu",
+           "replaces": "none: the JAX package leaves src/repro/models/layers.py::attention "
+                       "(lax.scan) to XLA", "shapes": {},
+           "launches": {"serve prefills (phase 11)": main_path["serve"]["launches"],
+                        "train steps (phase 13)": main_path["train"]["launches"]},
+           "main_path_device_ms": {
+               "a (4, 512) prefill of 28 layers (phase 11)":
+                   main_path["serve"]["profiled_prefill_device_ms"],
+               "a (8, 256) train step of 24 layers (phase 13)":
+                   main_path["train"]["device_ms_a_step"]}}
+    for label, (b, s, h, kv, hd) in ATTN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = (torch.randn((b, s, heads, hd), generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for heads in (h, kv, kv, h))
+        # SDPA's layout (B, H, S, hd), K/V heads repeated outside its timing
+        lib_args = [t.transpose(1, 2) for t in (q, k.repeat_interleave(h // kv, 2),
+                                                v.repeat_interleave(h // kv, 2))]
+        kernel = functools.partial(fa.flash_attention, causal=True)
+        flops = 4 * b * h * hd * (s * (s + 1) // 2)
+        fa.reset_launches()
+        want = outputs(plain, (q, k, v), do)
+        got = outputs(kernel, (q, k, v), do)
+        errs = {name: rel(g, w) for name, g, w in zip(("o", "dq", "dk", "dv"), got, want)}
+        del got, want
+        if (fa.forward_launches(), fa.backward_launches()) != (1, 1) or \
+                max(errs.values()) > ATTN_REL:
+            raise AssertionError(f"attention at {label}: {errs} off the plain version (norm-wise, "
+                                 f"tolerance {ATTN_REL}); launches (forward, backward) "
+                                 f"{(fa.forward_launches(), fa.backward_launches())} for one pass")
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            fa.reset_launches()
+            fwd_ms = kernel_device_ms(torch, kernel, (q, k, v), 10)
+            launches = fa.forward_launches()
+            plain_ms = time_ms(torch, plain, (q, k, v), 2)
+            lib_ms = time_ms(torch, library, lib_args, 10)
+        if launches != 11:
+            raise AssertionError(f"attention at {label}: {launches} forward launches for 11 calls")
+        fa.reset_launches()
+        both_ms = time_ms(torch, functools.partial(train, kernel), ((q, k, v), do), 5)
+        counts = (fa.forward_launches(), fa.backward_launches())
+        if counts != (6, 6):
+            raise AssertionError(f"attention at {label}: {counts} launches for 6 passes")
+        plain_both_ms = time_ms(torch, functools.partial(train, plain), ((q, k, v), do), 1)
+        torch.cuda.empty_cache()
+        lib_both_ms = time_ms(torch, functools.partial(train, library),
+                              (lib_args, do.transpose(1, 2)), 5)
+        bound = flops / BF16_FLOP_PER_S * 1e3
+        row["shapes"][label] = {
+            "shape": f"B={b} S={s} H={h} KV={kv} hd={hd} causal bf16", "flops_forward": flops,
+            "rel_to_plain": errs, "ms": fwd_ms, "bound_ms": bound, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "fwd_bwd_ms": both_ms, "fwd_bwd_bound_ms": 3 * bound,
+            "plain_fwd_bwd_ms": plain_both_ms, "library_fwd_bwd_ms": lib_both_ms}
+        log(f"[attention] {label} (B={b} S={s} H={h} KV={kv} hd={hd}, causal, bf16): forward "
+            f"{fwd_ms:.4f} ms, bound {bound:.4f} ms ({bound / fwd_ms:.1%} of it), plain "
+            f"{plain_ms:.2f} ms, library {lib_ms:.4f} ms; forward + backward {both_ms:.4f} ms, "
+            f"bound {3 * bound:.4f} ms ({3 * bound / both_ms:.1%}), plain {plain_both_ms:.2f} "
+            f"ms, library {lib_both_ms:.4f} ms; off the plain version (norm-wise) "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tolerance {ATTN_REL}); {card}")
+        del q, k, v, do, lib_args
+        torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -3712,6 +3884,10 @@ def main() -> int:
     row["launches"] += x_stats["sharded_match_launches"]
     row["sharded_match_kernel_ms"] = x_stats["sharded_match_kernel_ms"]
     log(f"[dist] {json.dumps({k: v for k, v in x_stats.items() if k != 'dryrun'})}; {card}")
+
+    # -- 16: the fused attention kernel at the benchmark cells' shapes
+    rows.append(attention_phase(torch, card, {"serve": s_stats["attention"],
+                                              "train": t_stats["attention"]}))
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     log(f"[card] {card}")

@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("colcodec", "distinct_counts", "match_extract", "simcount", "tokenize_hash",
-           "wildcard_match")
+SOURCES = ("attention", "colcodec", "distinct_counts", "match_extract", "simcount",
+           "tokenize_hash", "wildcard_match")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

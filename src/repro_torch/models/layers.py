@@ -1,9 +1,15 @@
-"""Core layers: RMSNorm, RoPE, GQA attention (KV-chunked for long
-sequences, one-token decode against a KV cache), dense FFN.
+"""Core layers: RMSNorm, RoPE, GQA attention over a sequence (a fused
+kernel on the card, KV-chunked on the CPU), one-token decode against a
+KV cache, dense FFN.
 
 Plain functions on tensors, the arithmetic of ``repro.models.layers``:
 compute dtype follows the inputs (bf16 in a bf16 model); softmax and
-norm statistics accumulate in fp32. The products are ``torch.matmul``.
+norm statistics accumulate in fp32. The products are ``torch.matmul``,
+except sequence attention on CUDA tensors, whose products run inside the
+hand-written kernel ``kernels.attention.flash_attention`` (operands in
+the inputs' dtype, fp32 accumulation, P rounded to v's dtype before P.V
+as ``decode_attention`` rounds it); on CPU tensors it is the plain
+version ``_attention``.
 
 On ``DTensor`` inputs (a model placed on a mesh) attention runs on each
 rank's (batch, head) blocks (``act_shard.on_blocks``), and one-token
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.act_shard import block_offset, on_blocks, placed
+from ..kernels.attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -65,25 +72,42 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def attention(q, k, v, *, causal: bool, k_chunk: int = 1024, kv_len=None):
-    """KV-chunked (flash-style) multi-head attention.
+    """Multi-head attention over a sequence.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
     kv_len: optional (B,) valid KV prefix length (decode masking).
+    causal: query i sees keys 0..i (aligned top-left, also where Sq != Sk).
 
-    A loop over KV chunks carrying the running (acc, max, denom) in fp32,
-    so the (B, H, Sq, k_chunk) score tile is the largest transient. On
-    ``DTensor`` s the loop runs on each rank's (batch, head) blocks.
+    CUDA tensors launch the fused kernel ``kernels.attention.flash_attention``
+    (forward and backward; GQA-native, the score tile never in device
+    memory), or raise; ``k_chunk`` means nothing to it. Other tensors (the
+    CPU, the dry run's "meta") take ``_attention``, a loop over KV chunks
+    of ``k_chunk`` keys carrying the running (acc, max, denom) in fp32, so
+    the (B, H, Sq, k_chunk) score tile is the largest transient. On
+    ``DTensor`` s either runs on each rank's (batch, head) blocks, K/V heads
+    repeated to H first so that the blocks of q and k hold the same heads.
     """
-    h, kv = q.shape[2], k.shape[2]
-    k = _repeat_kv(k, h // kv)
-    v = _repeat_kv(v, h // kv)
+    if type(q).__name__ == "DTensor" or type(k).__name__ == "DTensor":
+        h, kv = q.shape[2], k.shape[2]
+        k, v = _repeat_kv(k, h // kv), _repeat_kv(v, h // kv)
     heads = ("batch", None, "model", None)
-    return on_blocks(functools.partial(_attention, causal=causal, k_chunk=k_chunk),
+    return on_blocks(functools.partial(_attention_local, causal=causal, k_chunk=k_chunk),
                      (q, k, v, kv_len), (heads, heads, heads, ("batch",)), heads)
 
 
+def _attention_local(q, k, v, kv_len, *, causal: bool, k_chunk: int):
+    """``attention`` on plain tensors: the kernel on CUDA tensors, else
+    ``_attention`` with the K/V heads repeated to H."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, kv_len, causal=causal)
+    h, kv = q.shape[2], k.shape[2]
+    return _attention(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv), kv_len,
+                      causal=causal, k_chunk=k_chunk)
+
+
 def _attention(q, k, v, kv_len, *, causal: bool, k_chunk: int):
-    """``attention`` on plain tensors, K/V heads already repeated to H."""
+    """``attention`` on plain tensors, K/V heads already repeated to H: the
+    plain version, which the kernel is held to."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     scale = hd ** -0.5

@@ -106,6 +106,31 @@ def test_attention(k_chunk, causal, kv_len):
     assert _rel(got, _np(want)) < 1e-5
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(64, 64), (40, 150)])
+@pytest.mark.parametrize("kv", [8, 4, 1])
+@pytest.mark.parametrize("all_masked", [False, True])
+def test_attention_and_its_gradients_at_the_kernels_cases(causal, sq, sk, kv, all_masked):
+    """The plain version against the reference where the CUDA kernel is
+    held to the plain version on the card (tests/test_torch_attention_kernel.py,
+    whose card has no JAX): 8 query heads over 8, 4 or 1 KV heads, Sq !=
+    Sk with a ragged Sk, a batch row whose keys are all masked; o and the
+    gradients of <o, do> for q, k and v, in fp32."""
+    q, k, v = _qkv(5, sq=sq, sk=sk, h=8, kv=kv, hd=32)
+    do = np.random.default_rng(6).normal(size=q.shape).astype(np.float32)
+    lens = np.array([0, sk * 2 // 3], np.int32) if all_masked else None
+    jlens = None if lens is None else jnp.asarray(lens)
+    want, vjp = jax.vjp(lambda *a: rlayers.attention(*a, causal=causal, kv_len=jlens),
+                        *(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    got = layers.attention(*leaves, causal=causal,
+                           kv_len=None if lens is None else torch.from_numpy(lens))
+    got.backward(_t(do))
+    for name, g, w in zip(("o", "dq", "dk", "dv"), [got.detach()] + [t.grad for t in leaves],
+                          [want, *vjp(jnp.asarray(do))]):
+        assert _rel(g, _np(w)) < 1e-5, name
+
+
 @pytest.mark.parametrize("h,kv", [(4, 2), (4, 4), (8, 1)])
 def test_decode_attention(h, kv):
     q, k, v = _qkv(3, sq=1, sk=12, h=h, kv=kv)
